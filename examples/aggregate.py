@@ -3,14 +3,13 @@
 Demonstrates the three aggregate surfaces (ops/aggregate.py):
   1. hash_aggregate            -- single-level sort-group-reduce
   2. hash_aggregate_chunked    -- two-level batched-chunk engine for
-                                  low-cardinality groupings (1.46x at
-                                  256M rows / 64K groups on v5e, with
-                                  a COUNTED partial-capacity overflow)
+                                  low-cardinality groupings (with a
+                                  COUNTED partial-capacity overflow)
   3. aggregate_join_result     -- the BASELINE aggregate-on-join-output
                                   operator, straight off the aligned
                                   JoinResult (no materialization)
 
-Runs on whatever jax.devices() offers (TPU or CPU).
+Runs on whatever jax.devices() offers (GPU or CPU).
 python examples/aggregate.py [rows]
 """
 

@@ -1,6 +1,6 @@
 """Minimal end-to-end join: generate, join, materialize, verify.
 
-Runs on whatever jax.devices() offers (TPU or CPU).  Sizes are
+Runs on whatever jax.devices() offers (GPU or CPU).  Sizes are
 CLI-overridable: python examples/basic_join.py [inner] [outer]
 """
 
@@ -19,7 +19,7 @@ def main():
         seed=42, inner_tuples=ni, outer_tuples=no, mode="uniform"
     )
 
-    # join() auto-plans and re-plans on window overflow; the result is
+    # join() auto-plans; the result is
     # the ALIGNED layout (one slot per probe row: match count + max val)
     res, plan = hjk.join(inner.keys, inner.vals, outer.keys, outer.vals)
     print(f"join_tuples={int(res.join_tuples)} plan={plan}")

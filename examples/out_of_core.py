@@ -1,4 +1,4 @@
-"""Out-of-core joins: relations that do not fit device HBM.
+"""Out-of-core joins: relations that do not fit device memory.
 
 Two drivers (tiny sizes here so the example runs anywhere; scale the
 numbers on real hardware):

@@ -1,9 +1,9 @@
-"""TPU-native vectorized query-execution engine.
+"""Vectorized hash-join engine in JAX.
 
-A from-scratch JAX/XLA/Pallas reimplementation of the capabilities of the KNL
+A from-scratch JAX/XLA reimplementation of the capabilities of the KNL
 hash-join benchmark suite (xtcyclist/hash_join_codes_KNL, CIKM'17): NPJ / PHJ /
 CPRA hash joins, radix partitioning and sort, hash aggregate, filter, and a
-bit-compatible relation generator, scaled over TPU meshes via shard_map.
+bit-compatible relation generator, scaled over device meshes via shard_map.
 """
 
 __version__ = "0.1.0"

@@ -5,8 +5,8 @@ this layer generalizes to arbitrarily many named columns WITHOUT
 touching the kernels: the join runs with each side's ROW INDEX as its
 payload (u32 iota -- the engine's payload domain), and the matched
 index pairs materialize any number of columns host-side with numpy
-fancy indexing (host gathers are cheap; device gathers are the one
-thing this hardware cannot do, PERF_NOTES.md).
+fancy indexing (moving materialization onto the device is a ROADMAP
+reach item).
 
 Column dtypes are unconstrained (any numpy dtype, any width): the join
 KEY is u32 as in the reference, or u64 via join_columns_u64 (folded to

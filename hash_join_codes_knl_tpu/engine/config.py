@@ -4,7 +4,7 @@ The reference's compile-time -D flags and hardcoded constants (load factors,
 NUM_PARTITIONS=4096, buffer/block sizes; npj.cpp:944-947, phj.cpp:1976-1979,
 cpra2.cpp:2023-2034) become one frozen dataclass chosen at trace time.  The
 pass/fanout policy mirrors phj.cpp:1791-1808 (enough passes that the last
-level is cache -- here VMEM -- resident), re-derived for TPU tile geometry.
+level is cache resident).
 """
 
 from __future__ import annotations
@@ -18,51 +18,30 @@ DEFAULT_FACTOR = 0x9E3779B1  # odd golden-ratio factor; any odd u32 works
 @dataclasses.dataclass(frozen=True)
 class JoinPlan:
     p_bits: int  # total partition bits; fanout P = 2^p_bits
-    slots: int  # build-table slots per partition (VMEM-resident row)
+    slots: int  # build-table slots per partition (one table row)
     tile: int  # probe tile = probe-side pad quantum
     factor: int = DEFAULT_FACTOR
     # per-pass radix bits; consumed by partition_impl="radix" (the multi-
-    # pass Pallas partitioner, phj.cpp:1791-1863 analog); must sum to
+    # pass radix partitioner, phj.cpp:1791-1863 analog); must sum to
     # p_bits.  The "sort" modes ignore it (one fused sort IS all passes).
     pass_bits: tuple = ()
     skip_bits: int = 0  # hash bits already consumed by upstream routing
-    # "sort" (fused lax.sort) | "argsort" (oracle) | "radix" (multi-pass
-    # Pallas histogram+scatter partitioner driven by pass_bits)
+    # table mode's partitioner: "sort" (fused lax.sort) | "argsort"
+    # (oracle) | "radix" (multi-pass histogram+scatter driven by pass_bits)
     partition_impl: str = "sort"
-    # probe modes: "merge" (sorted-window probe, flagship; *_pallas/_jnp
-    # forced variants) | "auto"/"pallas"/"jnp" (padded-partition table probe)
+    # "merge" (sorted-search probe, flagship) | "table" (padded-partition
+    # table probe)
     probe_impl: str = "merge"
-    window: int = 0  # merge-mode probe window in slots (0 = auto estimate)
-    # two-class skew geometry (r5): when > 0, `window` is the NARROW
-    # class width and tiles whose measured span exceeds it re-probe in a
-    # second compact pass at window_wide slots (prefetch-indexed block
-    # scatter, ops/merge_probe_gather.merge_probe_gather_indexed).
-    # Requires an explicit `window`; wide_cap bounds the wide class's
-    # static size (0 = n_tiles/16 at trace time); more wide tiles than
-    # wide_cap is a COUNTED plan-opt violation (build_counts[2]) and
-    # every driver downgrades to the single-class window_wide geometry.
-    window_wide: int = 0
-    wide_cap: int = 0
-    # gather-probe boundary-select engine: "auto" (policy in
-    # engine/phj.py: rowbase where its K-slice has margin, else flat) |
-    # "flat" | "hier" | "rowbase".  The rowbase K-slice can overflow on
-    # extreme build-side duplicate runs; the engine counts that
-    # (JoinResult.build_counts[2]) and join() re-plans to "flat".
-    gather_select: str = "auto"
     # declare the build keys unique (the reference's -D_UNIQUE mode,
-    # npj.cpp:954-956): merge mode then skips the value-secondary build
-    # sort key (num_keys=2 exists only so duplicate-run max-vals sit at
-    # run ends -- with unique keys there are no runs).  VALIDATED at
+    # npj.cpp:954-956): merge mode then searches the sorted build side as
+    # it stands instead of compacting equal-key runs.  VALIDATED at
     # runtime: adjacent equal build keys are counted into
     # build_counts[2] and join() downgrades the flag, so a wrong
-    # declaration can never return silently wrong match values.
+    # declaration can never return silently wrong results.
     unique_build: bool = False
     # merge mode: sort the probe side as this many INDEPENDENT chunks
-    # (one batched 2-D sort) instead of one global 1-D sort.  Chunk
-    # sorts are cheaper (PERF_NOTES.md batched-sort row) and each tile's
-    # window grows by ~the chunk ratio -- affordable because the
-    # gather-select kernel makes window width nearly free.  0/1 = one
-    # global sort.
+    # (one batched 2-D sort) instead of one global 1-D sort.  0/1 = one
+    # global sort, which plan_join always picks (PERF.md).
     probe_chunks: int = 0
 
     @property
@@ -80,7 +59,7 @@ def reference_pass_plan(local_tuples: int,
     reference then relies on the shared inter-thread pass).
 
     Kept for parity/planning comparisons; the engine's own plans derive
-    pass bits from VMEM tile geometry instead (plan_join)."""
+    pass bits from the partition occupancy instead (plan_join)."""
     partitions = local_tuples // hash_table_limit
     if partitions > 1_000_000:
         passes = 4
@@ -101,63 +80,15 @@ def reference_pass_plan(local_tuples: int,
 
 
 def plan_join(inner_n: int, outer_n: int, tile: int | None = None,
-              probe_chunks: int | None = None) -> JoinPlan:
+              probe_chunks: int = 0) -> JoinPlan:
     """Pick a plan: build rows ~half full at the chosen fanout, probe
     partitions a small multiple of the tile so padding waste stays low.
-
-    At large probe counts the merge engine sorts the probe side as 64
-    independent chunks with a 3072-row tile: the batched 2-D sort is
-    ~30% cheaper than the global 1-D sort and the gather-select kernel
-    absorbs the wider windows (measured on v5e: 200 M tuples/s vs 158 at
-    16Mx256M; PERF_NOTES.md).  Small probes keep the global sort -- the
-    chunk quantum would be all padding.
+    The merge engine sorts the probe side globally: on the H100 the 1-D
+    key-value sort of 256M rows beat the batched 64-chunk sort by 3.4x
+    (PERF.md), so nothing chunks unless a caller asks.
     """
-    if probe_chunks is None:
-        # chunked sorting needs extra sort workspace: above ~320M probe
-        # rows it tips a 16 GB chip into OOM (measured at 32Mx512M), so
-        # the near-HBM-capacity regime keeps the global sort -- relations
-        # beyond that belong to the streaming driver (engine/stream.py)
-        # or the multi-chip exchange anyway
-        if 64_000_000 <= outer_n <= 320_000_000:
-            # window feasibility caps the chunk count FIRST: a tile's
-            # chunk-local span ~ tile*inner*C/outer must fit the
-            # 128-chunk gather ceiling WITH margins (~12.5K usable
-            # slots).  E.g. a 16M build against a 64M probe side (the
-            # streaming driver's per-chunk geometry) supports C=16,
-            # not 64 -- C=64 there would make every window overflow
-            # unfixably and fall to pathologically wide dense sweeps.
-            from .tune import DEFAULT_CANDIDATES, tuned_probe_chunks
-
-            t = tile if tile is not None else 3072
-            c_win = int((12_500 * outer_n) // (t * max(inner_n, 1)))
-            if c_win >= min(DEFAULT_CANDIDATES):
-                # the batched-sort cost surface is erratic across jax
-                # releases: the plan-time tuner times a few candidates
-                # on the device once per geometry and caches the verdict
-                # (engine/tune.py; C=64 is the measured static
-                # fallback).  Candidates the cap excludes are never
-                # timed (each costs a 1-4 min remote compile), and a cap
-                # below every candidate skips tuning entirely.
-                cands = tuple(
-                    C for C in DEFAULT_CANDIDATES if C <= c_win
-                )
-                # pass the ACTUAL tile: the tuner times quantum = tile*C
-                # batched sorts and caches per tile -- timing 3072-row
-                # geometry for a tile-1024 plan would cache a verdict
-                # for sorts the plan never runs
-                probe_chunks = tuned_probe_chunks(
-                    outer_n, tile=t, default=min(64, c_win),
-                    candidates=cands
-                )
-            else:
-                probe_chunks = c_win
-            probe_chunks = int(max(0, min(probe_chunks, c_win)))
-            if probe_chunks <= 1:
-                probe_chunks = 0
-        else:
-            probe_chunks = 0
     if tile is None:
-        tile = 3072 if probe_chunks else 2048
+        tile = 2048
     p_bits = 1
     # target mean build-partition occupancy <= 128 and mean probe partition
     # >= 2 tiles (bounds padding waste at ~25% worst case)
@@ -167,7 +98,7 @@ def plan_join(inner_n: int, outer_n: int, tile: int | None = None,
     slots = 1
     while slots < mean_build * 3 or slots < 64:
         slots *= 2
-    # split total bits into passes of at most 8 bits (VMEM buffer fanout cap)
+    # split total bits into passes of at most 8 bits
     remaining, passes = p_bits, []
     while remaining > 0:
         b = min(8, remaining)

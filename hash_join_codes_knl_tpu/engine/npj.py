@@ -1,13 +1,14 @@
-"""NPJ: no-partition (simple) hash join against one global HBM table.
+"""NPJ: no-partition (simple) hash join against one global table.
 
-TPU re-architecture of the reference NPJ (npj.cpp:769-927): one shared
-open-addressing table built over the whole build side, probed directly.
+The reference NPJ (npj.cpp:769-927): one shared open-addressing table built
+over the whole build side, probed directly.
 
 Build (K1 analog, npj.cpp:190-212): the reference inserts with CAS + linear
-probing.  TPUs have no atomics, but a linear-probe table's *cluster
-structure* is insertion-order independent, so the canonical layout is
-computed directly: sort tuples by home bucket, then resolve collisions with
-the vectorized parking rule slot_i = max(h_i, slot_{i-1}+1), which collapses
+probing.  A linear-probe table's *cluster structure* is insertion-order
+independent, so the canonical layout is computed directly: sort tuples by
+scrambled key hk (the home bucket is a monotone function of hk, so this
+orders them by home bucket too), then resolve collisions with the
+vectorized parking rule slot_i = max(h_i, slot_{i-1}+1), which collapses
 to slot_i = i + cummax(h_i - i) -- one sort, one cummax, one scatter.  The
 table is allocated with a non-wrapping overflow margin instead of modular
 wraparound (same join semantics: every key is findable from its home bucket
@@ -15,22 +16,15 @@ scanning forward to the first empty).
 
 Probe (K2 analog, npj.cpp:216-364): two engines.
 
-* "sorted" (default): the table is already HOME-BUCKET ORDERED (the build
-  sort produces it), and every key's matches live in slots [h0, h0+disp]
-  where disp <= the build's maximum parking displacement.  So the probe is
-  scheduled like the merge engine: order probes by home bucket (one fused
-  sort), sweep each probe tile against its bucket-range window with the
-  SAME Pallas kernel as PHJ's merge probe, then restore input order with a
-  second sort keyed by the carried index.  This replaces KNL's 16-lane
-  random gather (npj.cpp:252-318) -- the TPU has no HBM gather (measured
-  ~115M gathered elements/s via XLA, PERF_NOTES.md), so batch-scheduling
-  probes by locality is the vectorization, not a partitioning pass: there
-  is still exactly ONE global table and no radix decomposition.
-
+* "sorted" (default): the table's tuples in slot order, with the empty
+  slots dropped, are the build side sorted by hk.  Compacting its equal-key
+  runs (ops/merge_probe.py build_runs) gives one entry per distinct key,
+  and every probe key finds its run with one binary search -- the parked
+  table itself is never materialized on this path.  Probes need no
+  reordering: order="input" searches them as they come.
 * "chain": the literal while_loop chain walk over whole-relation gather
-  steps (active-masked; iterations = longest chain).  Gather-bound by
-  definition -- kept as the semantic oracle and ablation baseline
-  (the -D_NO_VECTOR analog), ~0.8M tuples/s on TPU.
+  steps (active-masked; iterations = longest chain) -- the semantic
+  oracle and ablation baseline (the -D_NO_VECTOR analog).
 
 Output contract: aligned to the PROBE input order (match_val/match_cnt per
 probe tuple), the closest analog of the reference's probe-order output.
@@ -44,12 +38,10 @@ import functools
 import jax
 import jax.numpy as jnp
 
+from ..ops.merge_probe import build_runs, merge_probe
 from ..ops.partition import PAD_KEY
-from ..utils.hashing import range_hash
+from ..utils.hashing import hashed_key, mod_inverse_u32, mulhi32, range_hash
 from .config import DEFAULT_FACTOR
-
-
-from ..utils.host import on_tpu as _on_tpu  # shared platform probe
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,52 +54,20 @@ class NpjPlan:
     # distinct, so a probe lane retires at its first match instead of
     # walking to the end of the cluster
     unique: bool = False
-    # probe engines: "sorted" (home-bucket-ordered window sweep, default)
-    # | "chain" (while_loop chain walk, the oracle/ablation path)
+    # probe engines: "sorted" (binary search of the compact sorted build,
+    # default) | "chain" (while_loop chain walk, the oracle/ablation path)
     probe_impl: str = "sorted"
-    tile: int = 2048  # sorted-probe tile (pad quantum)
-    window: int = 0  # sorted-probe window in slots (0 = auto estimate)
 
     @property
     def table_size(self) -> int:
-        """buckets + margin, rounded up to a 128 multiple (the sorted
-        probe views the table as (rows, 128))."""
+        """buckets + margin, rounded up to a 128 multiple."""
         return -(-(self.buckets + self.margin) // 128) * 128
-
-    # scoped-vmem budget for the DENSE probe kernel's unrolled
-    # (row x chunk) loop, in row-chunks.  Sourced from engine/phj.py's
-    # DENSE_ROWCHUNK_BUDGET (the single home for both kernel budgets --
-    # r5 fix: phj's explicit-window guard used to check dense windows
-    # against the looser GATHER budget); see that constant for the r4
-    # measurement bracket and the hw_revalidate re-bracketing protocol.
-    @property
-    def ROWCHUNK_BUDGET(self) -> int:
-        from .phj import DENSE_ROWCHUNK_BUDGET
-
-        return DENSE_ROWCHUNK_BUDGET
-
-    @property
-    def max_window(self) -> int:
-        chunks = max(3, self.ROWCHUNK_BUDGET // max(1, self.tile // 128))
-        return chunks * 128
-
-    def auto_window(self, probes: int, disp: int = 384) -> int:
-        """Window for the sorted probe: expected home-bucket span of one
-        probe tile (tile/probes of the bucket range) + the parking
-        displacement (pass the MEASURED max_disp when available -- the
-        default 384 budgets typical displacement, and a clustered build
-        beyond it would otherwise waste a full probe pass + recompile)
-        + an order-statistic margin, clamped to the table size and the
-        compilable window ceiling."""
-        lam = self.tile * self.buckets / max(probes, 1)
-        w = int(lam + 8 * (lam ** 0.5) + max(384, disp))
-        return min(-(-w // 128) * 128, self.table_size, self.max_window)
 
 
 def plan_npj(inner_n: int, load: float = 0.5) -> NpjPlan:
     """Reference sizing: hash_buckets = inner/load (npj.cpp:944-947 uses
-    load 0.9; default 0.5 here -- the TPU probe walk pays per chain step,
-    and HBM space is cheaper than chain length)."""
+    load 0.9; default 0.5 here, which keeps chains short for the chain
+    walk)."""
     buckets = 1
     while buckets * load < inner_n:
         buckets *= 2
@@ -119,21 +79,23 @@ def npj_build(inner_keys, inner_vals, plan: NpjPlan):
     """Returns (table_keys, table_vals, overflow_count, max_disp).
 
     max_disp is the largest parking displacement (slot - home bucket) of
-    any kept tuple: every key's matches lie in [h0, h0 + max_disp], which
-    is what the sorted probe's window-coverage check consumes."""
+    any kept tuple: every key's matches lie in [h0, h0 + max_disp]."""
     n = inner_keys.shape[0]
     size = plan.table_size
-    h = range_hash(inner_keys, plan.factor, plan.buckets).astype(jnp.int32)
-    # null keys park at the far end and are dropped
-    h = jnp.where(inner_keys != PAD_KEY, h, size)
-    # (h, key, val) all participate in the comparator: equal keys share h
-    # so they land contiguously with values ascending -- a fully
-    # deterministic layout (any order within an h-group is a valid
-    # linear-probe insertion order)
-    h_s, k_s, v_s = jax.lax.sort((h, inner_keys, inner_vals), num_keys=3)
+    # hk - 1 wraps the null key to the top, so null tuples sort last and
+    # park past the table, where they are dropped
+    sk, v_s = jax.lax.sort(
+        (hashed_key(inner_keys, plan.factor) - jnp.uint32(1), inner_vals),
+        num_keys=1,
+    )
+    hk_s = sk + jnp.uint32(1)
+    h_s = jnp.where(hk_s != 0,
+                    mulhi32(hk_s, jnp.uint32(plan.buckets)).astype(jnp.int32),
+                    size)
     j = jnp.arange(n, dtype=jnp.int32)
     slot = j + jax.lax.cummax(h_s - j)  # parking rule
     slot = jnp.where((h_s < size) & (slot < size), slot, size)  # drop
+    k_s = hk_s * jnp.uint32(mod_inverse_u32(plan.factor))
     tk = jnp.full(size, PAD_KEY, jnp.uint32).at[slot].set(k_s, mode="drop")
     tv = jnp.zeros(size, jnp.uint32).at[slot].set(v_s, mode="drop")
     overflow = jnp.sum((slot >= size).astype(jnp.int32)) - jnp.sum(
@@ -183,186 +145,72 @@ def npj_probe(table_keys, table_vals, probe_keys, plan: NpjPlan):
     return mval, mcnt
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("plan", "window", "order"))
-def npj_probe_sorted(table_keys, table_vals, probe_keys, plan: NpjPlan,
-                     max_disp, window: int, probe_vals=None,
+@functools.partial(jax.jit, static_argnames=("plan",))
+def npj_runs(inner_keys, inner_vals, plan: NpjPlan):
+    """The compact sorted build the sorted probe searches: the table's
+    tuples in slot order without its empty slots, equal keys compacted
+    to (key, count, largest value) runs."""
+    if inner_keys.shape[0] == 0:  # one null pad keeps the search defined
+        inner_keys = inner_vals = jnp.zeros(1, jnp.uint32)
+    bhk, bval = jax.lax.sort(
+        (hashed_key(inner_keys, plan.factor), inner_vals), num_keys=1)
+    return build_runs(bhk, bval)
+
+
+@functools.partial(jax.jit, static_argnames=("plan", "order"))
+def npj_probe_sorted(runs, probe_keys, plan: NpjPlan, probe_vals=None,
                      order: str = "input"):
-    """Home-bucket-ordered window probe (the vectorized K2).
+    """Binary-search probe of the compact sorted build (`npj_runs`).
 
-    Order probes by home bucket with one fused sort, sweep each tile
-    against its bucket-range window with the merge-probe kernel (the
-    table is bucket-ordered by construction, and equal keys are parked
-    contiguously, so the dense equality sweep sees exactly the
-    chain-walk's candidate set).
+    order="input": returns (match_vals, match_cnts) aligned to the probe
+    input order -- the probes are searched as they come.
 
-    order="input" (default): the sort carries the original INDEX and a
-    second sort restores input order; returns (match_vals, match_cnts
-    aligned to probe input order, overflow).
-
-    order="sorted": the sort carries the probe VALUE instead and the
-    inverse sort is skipped entirely -- the output stays in
-    (home-bucket, key)-sorted order, exactly the PHJ merge engine's
-    aligned contract; returns (probe_keys_sorted, probe_vals_sorted,
-    match_vals, match_cnts, overflow) at the padded capacity (pads
-    carry key 0 and zero counts).  One 3-column probe-side sort instead
-    of two -- the right form for consumers that treat join output as a
-    row multiset (materialize, digests, aggregates; requires
-    probe_vals).
-
-    overflow counts tiles whose required span (tile max h0 + max_disp +
-    1 - window row) exceeds `window` -- a VALUE for the caller to
-    re-plan on, never silent (engine convention).
-    """
-    from ..ops.merge_probe_pallas import merge_probe_jnp, merge_probe_pallas
-
-    n = probe_keys.shape[0]
-    size = table_keys.shape[0]
-    rows_total = size // 128
-    tile = plan.tile
-    cap = -(-n // tile) * tile
-    # round an explicit window UP to the kernel's 128-slot chunk quantum
-    # (flooring would sweep fewer slots than the overflow check budgets),
-    # and clamp to the table: wider would clip wrow NEGATIVE
-    # (out-of-bounds HBM DMA on TPU); whole-table coverage is the most a
-    # window can mean.  Both values are trace-time.
-    window = min(-(-window // 128) * 128, rows_total * 128)
-    w_chunks = window // 128
-    h0 = range_hash(probe_keys, plan.factor, plan.buckets).astype(jnp.int32)
-    # pads carry key 0 (inert in the kernel); park them at the last bucket
-    # so mixed real/pad tiles keep a sane span for the coverage check
-    h0 = jnp.where(probe_keys != PAD_KEY, h0, plan.buckets - 1)
-    h0p = jnp.concatenate(
-        [h0, jnp.full(cap - n, plan.buckets - 1, jnp.int32)]
-    )
-    kp = jnp.concatenate([probe_keys, jnp.zeros(cap - n, jnp.uint32)])
-    if order == "sorted":
-        assert probe_vals is not None, "order='sorted' needs probe_vals"
-        carry = jnp.concatenate(
-            [probe_vals, jnp.zeros(cap - n, jnp.uint32)]
-        )
-    else:
-        carry = jnp.arange(cap, dtype=jnp.int32)
-    # num_keys=2: the KEY must be the secondary sort key so equal-h0
-    # groups come out key-ordered.  The shared kernel's constant-tile
-    # fast path broadcasts row 0's results whenever tile[first] ==
-    # tile[last]; a key occupies exactly one home bucket, so under
-    # (h0, key) order first == last still implies the whole tile is one
-    # key -- under h0-only order a bucket-colliding key interleaved
-    # inside a heavy hitter's run would silently receive the hot key's
-    # matches on TPU.
-    h0_s, k_s, carry_s = jax.lax.sort((h0p, kp, carry), num_keys=2)
-    lo = h0_s[::tile]
-    hi = h0_s[tile - 1 :: tile]
-    wrow = jnp.clip(lo // 128, 0, rows_total - w_chunks)
-    # required span clamps to the table end: a cluster parked near the
-    # tail cannot extend past `size`, so hi + max_disp + 1 overstates
-    # the true requirement there (a whole-table window covers
-    # everything yet would be flagged as overflow)
-    need_end = jnp.minimum(hi + max_disp + 1, size)
-    overflow = jnp.sum(
-        (need_end - wrow * 128 > window).astype(jnp.int32)
-    )
-    tk2 = table_keys.reshape(rows_total, 128)
-    tv2 = table_vals.reshape(rows_total, 128)
-    # the DENSE merge kernel only: the parked table interleaves empty
-    # (key 0) slots, so its windows are not monotone and the
-    # gather-select kernel's boundary arithmetic (merge_probe_gather,
-    # which needs key-sorted windows) does not apply here
-    if _on_tpu():
-        mv, mc = merge_probe_pallas(k_s, tk2, tv2, wrow, tile, window)
-    else:
-        mv, mc = merge_probe_jnp(k_s, tk2, tv2, wrow, tile, window)
-    if order == "sorted":
-        return k_s, carry_s, mv, mc, overflow
-    _, mv_o, mc_o = jax.lax.sort((carry_s, mv, mc), num_keys=1)
-    return mv_o[:n], mc_o[:n], overflow
+    order="sorted": the probe side is first sorted by hk carrying its
+    values, and the result stays in that (home-bucket) order, exactly the
+    PHJ merge engine's aligned contract; returns (probe_keys_sorted,
+    probe_vals_sorted, match_vals, match_cnts) (requires probe_vals)."""
+    phk = hashed_key(probe_keys, plan.factor)
+    if order == "input":
+        return merge_probe(phk, *runs)
+    if probe_vals is None:
+        raise ValueError("order='sorted' needs probe_vals")
+    phk, pv = jax.lax.sort((phk, probe_vals), num_keys=1)
+    mv, mc = merge_probe(phk, *runs)
+    return phk * jnp.uint32(mod_inverse_u32(plan.factor)), pv, mv, mc
 
 
 def npj_join(inner_keys, inner_vals, outer_keys, outer_vals,
-             plan: NpjPlan | None = None, window_retries: int = 3,
-             order: str = "input"):
+             plan: NpjPlan | None = None, order: str = "input"):
     """Full NPJ.
 
     order="input" (default): returns (match_vals, match_cnts aligned to
     the outer input order, plan).
 
     order="sorted": returns (probe_keys, probe_vals, match_vals,
-    match_cnts, plan) in home-bucket-sorted order at the padded
-    capacity -- the PHJ merge engine's aligned contract.  Skips both
-    the index carry and the inverse sort (one probe-side 3-column sort
-    instead of two), the faster form for consumers that treat join
-    output as a row multiset.  Sorted probe engine only.
-
-    Sorted-probe window overflow triggers re-planning with a doubled
-    window (same protocol as the merge PHJ engine)."""
+    match_cnts, plan) in home-bucket-sorted order -- the PHJ merge
+    engine's aligned contract.  Sorted probe engine only."""
     if order not in ("input", "sorted"):
         raise ValueError(f"order must be 'input' or 'sorted', got {order!r}")
     if plan is None:
         plan = plan_npj(len(inner_keys))
     if plan.probe_impl == "chain" and order != "input":
-        # argument validation BEFORE the build: rejecting after
-        # npj_build would waste the build sort + a device sync (and
-        # possibly a remote compile) on an error knowable here
         raise ValueError(
             "order='sorted' applies to the sorted probe engine only "
             "(the chain walk is input-ordered by construction)"
         )
     ik, iv = jnp.asarray(inner_keys), jnp.asarray(inner_vals)
     ok = jnp.asarray(outer_keys)
-    tk, tv, overflow, max_disp = npj_build(ik, iv, plan)
-    if int(overflow) > 0:
-        raise RuntimeError(
-            f"{int(overflow)} build tuples overflowed the table margin; "
-            "increase NpjPlan.margin or lower the load factor"
-        )
     if plan.probe_impl == "chain":
+        tk, tv, overflow, _ = npj_build(ik, iv, plan)
+        if int(overflow) > 0:
+            raise RuntimeError(
+                f"{int(overflow)} build tuples overflowed the table margin; "
+                "increase NpjPlan.margin or lower the load factor"
+            )
         mv, mc = npj_probe(tk, tv, ok, plan)
         return mv, mc, plan
-    ov_s_arg = jnp.asarray(outer_vals) if order == "sorted" else None
-    # the measured parking displacement is already synced (the overflow
-    # check above): fold it into the FIRST window so a clustered build
-    # (max_disp past auto_window's default 384-slot budget) does not
-    # burn a full wasted probe pass + a doubled-window recompile
-    disp = int(max_disp) + 128
-    window = plan.window or plan.auto_window(len(ok), disp)
-    for _ in range(window_retries + 1):
-        size_cap = min(plan.table_size, plan.max_window)
-        window = min(window, size_cap)
-        out = npj_probe_sorted(tk, tv, ok, plan, max_disp, window,
-                               probe_vals=ov_s_arg, order=order)
-        wovf = out[-1]
-        if int(wovf) == 0:
-            break
-        if window < size_cap:
-            # an undersized explicit window jumps straight to the auto
-            # estimate; past that, double
-            window = min(max(2 * window, plan.auto_window(len(ok), disp)),
-                         size_cap)
-        elif plan.tile > 512:
-            # spans exceed the widest compilable window at this tile:
-            # tile spans scale WITH the tile while the dense kernel's
-            # scoped-vmem ceiling scales inversely with its row count,
-            # so halving the tile shrinks the requirement and raises
-            # the cap at once (the PHJ re-planner's tile-shrink move,
-            # engine/phj.replan_from_span; floor 512 as there).  Needed
-            # since the r4 scoped-vmem recalibration: probe counts a
-            # small fraction of the table overflow the tile-2048 cap.
-            plan = dataclasses.replace(plan, tile=plan.tile // 2)
-            window = plan.auto_window(len(ok), disp)
-        else:
-            break
-    if int(wovf) != 0:
-        raise RuntimeError(
-            "sorted-probe window overflow persists at the widest "
-            "compilable window and the smallest tile: tile spans exceed "
-            "the dense sweep's range (very small probe counts against a "
-            "large table) -- use the PHJ merge engine for this shape, "
-            "or raise the load factor to shrink the bucket range"
-        )
-    final = dataclasses.replace(plan, window=window)
+    runs = npj_runs(ik, iv, plan)
     if order == "sorted":
-        k_s, v_s, mv, mc, _ = out
-        return k_s, v_s, mv, mc, final
-    mv, mc, _ = out
-    return mv, mc, final
+        return (*npj_probe_sorted(runs, ok, plan, jnp.asarray(outer_vals),
+                                  order="sorted"), plan)
+    return (*npj_probe_sorted(runs, ok, plan), plan)

@@ -76,3 +76,56 @@ def multiset_digest(
     s1 = int(np.sum(h, dtype=_U64))
     s2 = int(np.sum(_mix64(h + _U64(0x9E3779B97F4A7C15)), dtype=_U64))
     return len(keys), s1, s2
+
+
+def add_digests(a, b) -> tuple[int, int, int]:
+    """The digest of the union of two row multisets: counts add, the two
+    hash sums add mod 2^64."""
+    m = (1 << 64) - 1
+    return a[0] + b[0], (a[1] + b[1]) & m, (a[2] + b[2]) & m
+
+
+def _oracle_chunk(task):
+    inner_keys, inner_vals, outer_keys, outer_vals = task
+    # the digest does not depend on row order: probe rows in key order make
+    # join_oracle's searches walk the build side in order
+    order = np.argsort(outer_keys, kind="stable")
+    return multiset_digest(*join_oracle(inner_keys, inner_vals,
+                                        outer_keys[order], outer_vals[order]))
+
+
+def _digest_chunk(cols):
+    return multiset_digest(*cols)
+
+
+def _sum_digests(digests):
+    total = (0, 0, 0)
+    for d in digests:
+        total = add_digests(total, d)
+    return total
+
+
+def oracle_digest(inner_keys, inner_vals, outer_keys, outer_vals,
+                  pool=None, chunk_rows: int = 1 << 24):
+    """multiset_digest(*join_oracle(...)), computed over probe chunks of
+    chunk_rows rows (the digest is a sum over rows), on `pool` (a
+    multiprocessing pool whose workers need numpy only) when given."""
+    # one stable sort of the build side here; join_oracle's own stable
+    # argsort of an already sorted column is then linear
+    order = np.argsort(inner_keys, kind="stable")
+    ik, iv = inner_keys[order], inner_vals[order]
+    n = len(outer_keys)
+    tasks = [(ik, iv, outer_keys[i : i + chunk_rows],
+              outer_vals[i : i + chunk_rows]) for i in range(0, n, chunk_rows)]
+    run = pool.imap_unordered if pool is not None else map
+    return _sum_digests(run(_oracle_chunk, tasks))
+
+
+def digest_rows(keys, vals, tabs, pool=None, chunk_rows: int = 1 << 24):
+    """multiset_digest(keys, vals, tabs) over row chunks, on `pool` when
+    given."""
+    n = len(keys)
+    tasks = [(keys[i : i + chunk_rows], vals[i : i + chunk_rows],
+              tabs[i : i + chunk_rows]) for i in range(0, n, chunk_rows)]
+    run = pool.imap_unordered if pool is not None else map
+    return _sum_digests(run(_digest_chunk, tasks))

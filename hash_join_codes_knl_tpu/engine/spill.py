@@ -3,7 +3,7 @@
 The reference's only checkpoint is the relation files between `write` and
 the join binaries (SURVEY.md section 5).  This module adds the optional
 per-stage analog: any partitioned intermediate (the zero-padded
-partition-contiguous layout produced by ops/radix_partition_pallas.py or
+partition-contiguous layout produced by ops/radix_partition.py or
 the exchange) can be spilled to disk and resumed, so a failed or
 preempted multi-stage job restarts from the last completed stage instead
 of the raw relations.  Every stage is a pure function of its inputs, so

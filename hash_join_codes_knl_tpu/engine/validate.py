@@ -12,7 +12,7 @@ verifies -- without any oracle join --
   2. pad hygiene: padding slots (key 0) carry zero match counts/values,
   3. match sanity: counts are non-negative and a match value implies a
      positive count (and vice versa for unique-build workloads),
-  4. window monotonicity: the result's probe keys are hash-ordered
+  4. order monotonicity: the result's probe keys are hash-ordered
      within each sorted chunk (the partition-monotonicity re-check).
 
 Cheap enough to run on every CLI invocation with --check; raises
@@ -58,14 +58,14 @@ def validate_join_result(res, outer_keys, plan) -> dict:
     if ((mc == 0) & (mv != 0)).any():
         raise ValueError("match sanity: match value without a match")
 
-    # partition/window monotonicity: within each sorted probe chunk the
+    # partition monotonicity: within each sorted probe chunk the
     # scrambled keys must be non-decreasing (pads are hk 0 and sort
     # first, so they never break monotonicity).  Irregular geometries
     # (result length not divisible by the chunk count -- a truncated or
     # re-laid-out result) cannot infer chunk boundaries; that case is
     # REPORTED in the stats instead of silently skipping the check.
     monotonicity = "n/a"
-    if getattr(plan, "probe_impl", "merge").startswith("merge"):
+    if getattr(plan, "probe_impl", "merge") == "merge":
         hk = (pk.astype(np.uint64) * np.uint64(plan.factor)).astype(
             np.uint32
         )

@@ -1,10 +1,9 @@
 """Hash aggregate: group-by-key reduction over relations / join output.
 
 The BASELINE operator set requires a hash aggregate on join output
-(BASELINE.json north star).  TPU-first design: no hash table at all --
-sort-group-reduce, with NO scatter and NO gather anywhere (PERF_NOTES.md
-measures XLA scatter-add at 2.27 s and gather at ~115M elem/s for 256M
-rows on v5e -- both unusable at join-output scale):
+(BASELINE.json north star).  Design: no hash table at all --
+sort-group-reduce, with NO scatter and NO gather anywhere (whether a
+scatter-add group-by is faster on the GPU is an open ROADMAP item):
 
 1. one fused sort groups equal keys -- sorted on `keys - 1`, a u32
    bijection that preserves nonzero-key order and wraps the null key 0
@@ -49,8 +48,8 @@ def _reduce_runs(k_s, vcols):
     each row's run-start keys compacted to its front (PAD_KEY tails),
     the per-run u32 wraparound sum of every value column, the run
     lengths, and g = groups per row.  C == 1 uses 1-D sorts internally
-    (a (1, n) dimension=1 sort takes XLA's much slower batched path --
-    PERF_NOTES "batched pair sort": (1, 256M) = 6.7 s vs 0.9 s)."""
+    (a (1, n) dimension=1 sort would take XLA's batched sort path, the
+    slower one: PERF.md)."""
     C, m = k_s.shape
     valid = k_s != PAD_KEY
     newrun = jnp.concatenate(
@@ -138,8 +137,8 @@ def hash_aggregate_chunked(keys, vals, chunks: int = 64,
     aggregation, then one small aggregate over the packed partials.
 
     Level 1 sorts the input as `chunks` INDEPENDENT rows (the same
-    batched-2-D-sort economics as the join's chunk-sorted probe,
-    PERF_NOTES "batched pair sort") and reduces each chunk's runs to
+    batched-2-D sort as the join's chunk-sorted probe) and reduces each
+    chunk's runs to
     (key, partial sum, partial count) triples packed to the chunk's
     front.  Level 2 re-aggregates the at-most-partial_cap partials:
     sums add, counts add (a 2-value-column run reduction; the

@@ -1,7 +1,7 @@
 """Output compaction: the close_gaps analog (K10, npj.cpp:475-514).
 
 The reference compacts partially-filled output blocks with a two-pointer
-move distributed by an atomic ticket counter.  On TPU the aligned join
+move distributed by an atomic ticket counter.  Here the aligned join
 output (flags per slot) is compacted deterministically: one stable sort by
 the negated flag packs matched rows to the front in original order, and the
 match count gives the valid prefix -- no atomics, no hole bookkeeping, and

@@ -1,19 +1,16 @@
 """Radix/hash partitioning operators (device side).
 
-TPU redesign of the reference's histogram -> interleave -> scatter pipeline
-(K6/K7/K9, phj.cpp:693-1231): partition ids are high-bit groups of one
+The reference's histogram -> interleave -> scatter pipeline (K6/K7/K9,
+phj.cpp:693-1231): partition ids are high-bit groups of one
 multiplicatively scrambled key, partitions are laid out contiguously with
 per-partition regions padded to a tile quantum, and all "atomic cursor"
-machinery (npj.cpp:244) is replaced by exact prefix-sum offsets -- TPUs have
-no global atomics, and SPMD + prefix sums make the layout fully deterministic.
+machinery (npj.cpp:244) is replaced by exact prefix-sum offsets, which make
+the layout fully deterministic.
 
-Two implementations per operator:
-  * `*_jnp`: pure jnp (argsort/scatter based).  Correctness oracle and CPU
-    fallback, analogous to the reference's `-D_NO_VECTOR` scalar kernels (K5).
-  * the Pallas histogram+scatter pass lives in ops/radix_partition_pallas.py
-    (VMEM write-combining buffers, dynamic-offset DMAs); it wins only for
-    bounded fanouts -- the fused-sort forms below beat it for full
-    partitioning on TPU (PERF_NOTES.md "Why partition-as-sort").
+Two forms per operator: argsort-based (`partition_padded_jnp`,
+`build_dense_table_jnp`, the reference's `-D_NO_VECTOR` analog, K5) and
+one fused sort (`*_sort_jnp`).  The bounded-fanout radix pass with
+equal-capacity regions is ops/radix_partition.py.
 
 Layout produced for the probe side ("padded partition layout"):
   out[offsets[p] : offsets[p] + counts[p]]    = tuples of partition p

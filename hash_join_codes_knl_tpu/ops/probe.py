@@ -1,12 +1,11 @@
-"""Partitioned probe operator: the TPU redesign of K2/K4.
+"""Partitioned probe operator: the padded-table redesign of K2/K4.
 
-The reference probe is a 16-lane gather / compare / compress loop over an
-HBM-resident table (npj.cpp:216-364).  TPUs have no vector gather from HBM,
-so the design is inverted: partitioning has already made each build-side
-partition VMEM-resident, and the probe is a *dense* comparison of each probe
-tile against its partition's packed build rows -- equality matrices on the
-VPU, match extraction by select+max (exact in u32), match counting by
-popcount-style reduction.  Probe tiles never straddle partitions (padded
+The reference probe is a 16-lane gather / compare / compress loop over a
+table in memory (npj.cpp:216-364).  Here partitioning has already packed
+each build-side partition into one dense table row, and the probe is a
+*dense* comparison of each probe tile against its partition's row --
+equality matrices, match extraction by select+max (exact in u32), match
+counting by reduction.  Probe tiles never straddle partitions (padded
 layout, ops/partition.py), so each tile touches exactly one table row.
 
 Output is aligned to the padded probe layout: for probe slot i,
@@ -36,7 +35,7 @@ def probe_tiles_jnp(
     tile: int,
     group: int = 8,
 ):
-    """jnp oracle of the Pallas probe kernel.
+    """Tile-by-tile probe of the padded layout against the dense table.
 
     Scans over groups of `group` tiles per step (one scalar scan step per
     tile would dominate runtime at 10^8-tuple scale).  Requires

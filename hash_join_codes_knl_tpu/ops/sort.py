@@ -2,11 +2,9 @@
 
 The reference's multi-pass radix machinery is partitioning-only (phj/cpra
 never fully sort); BASELINE.json asks for radix sort/partition as a
-standalone op.  On TPU, full key sort IS XLA's fused variadic sort (payload
-columns ride along) -- every multi-pass radix alternative was measured or
-modeled slower (PERF_NOTES.md "Why partition-as-sort").  The partition-only
-forms are ops/partition.py (fused-sort) and ops/radix_partition_pallas.py
-(the Pallas histogram+scatter pass, for bounded fanouts).
+standalone op.  A full key sort IS XLA's variadic sort (payload columns
+ride along).  The partition-only forms are ops/partition.py (fused-sort)
+and ops/radix_partition.py (histogram + scatter, for bounded fanouts).
 """
 
 from __future__ import annotations

@@ -1,11 +1,11 @@
 """CPRA: partition-aware join with cross-worker re-aggregation, multi-chip.
 
-TPU re-architecture of the reference CPRA pipeline (cpra2.cpp:1697-1986):
-the reference's threads each radix-partition their local slice, then
-re-aggregate partition fragments across threads by memcpy into contiguous
-repositories (cpra2.cpp:1883-1906) before partition-parallel build/probe.
-On a TPU mesh, "thread" becomes "chip", and the memcpy re-aggregation becomes
-a single `all_to_all` over ICI: each chip packs its tuples into per-owner
+The reference CPRA pipeline (cpra2.cpp:1697-1986): the reference's threads
+each radix-partition their local slice, then re-aggregate partition
+fragments across threads by memcpy into contiguous repositories
+(cpra2.cpp:1883-1906) before partition-parallel build/probe.  On a device
+mesh, "thread" becomes "device", and the memcpy re-aggregation becomes a
+single `all_to_all`: each device packs its tuples into per-owner
 buckets (owner = top log2(C) bits of the hashed key), the collective delivers
 every chip its owned fragments, and the local PHJ engine joins them.
 Barriers are implicit in SPMD program order; the atomic fragment cursors
@@ -52,7 +52,7 @@ def _check_tier_plan(use_tiers: bool, plan: JoinPlan) -> None:
     partitioning on the TOP factor-1 bits would be skewed into
     guaranteed slot overflow.  The merge engine sorts the full range
     and is insensitive to that compression; refuse loudly."""
-    if use_tiers and not plan.probe_impl.startswith("merge"):
+    if use_tiers and plan.probe_impl != "merge":
         raise ValueError(
             "tier_ratio requires a merge-mode local plan: tier routing "
             "compresses each chip's factor-1 hash range, skewing padded "
@@ -61,67 +61,40 @@ def _check_tier_plan(use_tiers: bool, plan: JoinPlan) -> None:
 
 
 def pack_by_owner_radix(keys, vals, factor: int, c_bits: int,
-                        cap: int = 0, interpret: bool = False):
-    """Owner pack through ONE bounded-fanout Pallas radix pass -- the
-    regime where the histogram+scatter kernel beats the fused sort
-    (0.49 s vs 1.31 s per 256M tuples at <=64-way on v5e;
-    ops/radix_partition_pallas.py docstring).
+                        cap: int = 0):
+    """Owner pack through ONE radix pass (ops/radix_partition.py).
 
-    Owner chip = top c_bits of hk = key*factor, exactly the pass's own
+    Owner device = top c_bits of hk = key*factor, exactly the pass's own
     partition function, so the pass IS the pack.  Buckets come back
-    zero-interleaved (every consumer masks null keys), carrying hk --
-    the caller multiplies by the modular inverse after the exchange to
+    zero-padded (every consumer masks null keys), carrying hk -- the
+    caller multiplies by the modular inverse after the exchange to
     restore raw keys.  `cap` is the per-owner bucket capacity in tuples
     (the exchange-planning knob, rounded up to the pass's 128-row
     quantum; 0 = the pass's own estimate), so cap-based memory planning
     applies to this pack exactly as to the sort pack -- overflow beyond
     it is the returned signal, never silent.  Returns
     (bucket_hk (C*capr,), bucket_vals, counts (C,), overflow)."""
-    from ..ops.radix_partition_pallas import radix_partition_pallas
+    from ..ops.radix_partition import radix_partition
 
     hk = hashed_key(keys, factor)
-    return radix_partition_pallas(hk, vals, c_bits, cap=cap,
-                                  interpret=interpret)
+    return radix_partition(hk, vals, c_bits, cap=cap)
 
 
 def _engine_overflow(res, local_plan):
     """The local join engine's own overflow signal as a COUNT (0 = clean).
 
-    merge mode: count of window-overflow tiles (build_counts[0]);
-    padded radix mode: the multipass pass-overflow flag appended as the
+    merge mode: the unique_build violation count (build_counts[2]),
+    fixed by downgrade_plan_opts;
+    padded radix mode: the multipass pass-overflow count appended as the
     LAST build_counts entry -- the per-partition counts there are
-    measured against the pass's own region capacity, NOT plan.slots, so
-    comparing them to slots both misses real pass overflows and
-    false-positives on legitimate counts;
+    measured against the pass's own region capacity, NOT plan.slots;
     padded sort mode: number of partitions past `slots` (dropped tuples).
     """
-    if local_plan.probe_impl.startswith("merge"):
-        # window-overflow tiles plus rowbase select-overflow rows
-        # (build_counts[2]): either means incomplete matches, and every
-        # driver must surface it -- the re-planners split them apart
-        # again via _engine_select_overflow
-        return res.build_counts[0] + res.build_counts[2]
+    if local_plan.probe_impl == "merge":
+        return res.build_counts[2]
     if local_plan.partition_impl == "radix":
         return res.build_counts[-1]
     return jnp.sum((res.build_counts > local_plan.slots).astype(jnp.int32))
-
-
-def _engine_select_overflow(res, local_plan):
-    """Plan-optimization violation count (merge mode only; 0 elsewhere):
-    rowbase select-overflow rows plus unique_build duplicate keys.  The
-    fix is downgrade_plan_opts, not a window change -- kept as its own
-    diag entry so cpra_join re-plans the right knob."""
-    if local_plan.probe_impl.startswith("merge"):
-        return res.build_counts[2]
-    return jnp.zeros((), jnp.int32)
-
-
-def _engine_span(res, local_plan):
-    """Measured max required probe-window span (merge mode only; 0
-    elsewhere) -- the re-planner input (engine/phj.py replan_from_span)."""
-    if local_plan.probe_impl.startswith("merge"):
-        return res.build_counts[1]
-    return jnp.zeros((), jnp.int32)
 
 
 def _owner_bits(n_chips: int) -> int:
@@ -178,21 +151,19 @@ def make_cpra_step(
     re-expressed as a device-group placement policy (SURVEY.md K13 row) --
     then a second hash picks the chip within the half.
     pack_impl: "sort" (fused-sort pack into inner_cap/outer_cap buckets)
-    or "radix" (ONE bounded-fanout Pallas histogram+scatter pass as the
-    pack -- the kernel's measured winning regime at <=64-way;
+    or "radix" (ONE radix pass as the pack, ops/radix_partition.py;
     inner_cap/outer_cap bound its buckets too, rounded to the pass's
-    128-row quantum; zero-interleaved buckets carry hk and keys are
+    128-row quantum; zero-padded buckets carry hk and keys are
     restored after the exchange).  Tier routing requires "sort" (the
     tier hash is not a top-bits partition).
     Returns fn(ik, iv, ok, ov) -> (JoinResult, heavy, diag): inputs
     sharded along `axis`, result leaves chip-local (the aligned join output
-    never needs to be gathered).  diag is a replicated (5,) int32 vector
-    [exchange-cap overflow count, engine (window/table) overflow count,
-    max required probe-window span, heavy-build-cap overflow count,
-    rowbase select-overflow count] --
-    the overflow sources are reported separately because their fixes
-    differ (more exchange slack vs a measured-span window re-plan vs a
-    larger heavy_build_cap).  With skew=True, `heavy` is the local-heavy
+    never needs to be gathered).  diag is a replicated (3,) int32 vector
+    [exchange-cap overflow count, engine overflow count (unique_build
+    violations or table overflow, _engine_overflow), heavy-build-cap
+    overflow count] -- the overflow sources are reported separately
+    because their fixes differ (more exchange slack vs a plan downgrade
+    vs a larger heavy_build_cap).  With skew=True, `heavy` is the local-heavy
     row set (probe_vals, match_vals, match_cnts aligned to the local probe
     shard + its keys) produced by heavy-hitter replication (parallel/skew.py);
     otherwise it is None.
@@ -258,19 +229,13 @@ def make_cpra_step(
             tiled=True,
         )
         if pack_impl == "radix" and not use_tiers and c_bits > 0:
-            # bounded-fanout Pallas pass as the pack (its measured
-            # winning regime); buckets carry hk, zero-interleaved at the
-            # pass's own capacity -- raw keys restored after the
+            # one radix pass as the pack; buckets carry hk, zero-padded
+            # at the pass's own capacity -- raw keys restored after the
             # exchange by the modular inverse
-            interp = jax.devices()[0].platform == "cpu"
             bik, biv, icnt, iovf = pack_by_owner_radix(
-                ik, iv, plan.factor, c_bits, cap=inner_cap,
-                interpret=interp,
-            )
+                ik, iv, plan.factor, c_bits, cap=inner_cap)
             bok, bov, ocnt, oovf = pack_by_owner_radix(
-                ok, ov, plan.factor, c_bits, cap=outer_cap,
-                interpret=interp,
-            )
+                ok, ov, plan.factor, c_bits, cap=outer_cap)
             # two overflow layers: the pass's own capacity (tuples
             # dropped -- must retry) and the PLANNED caps (counts
             # exceeded the exchange budget; same signal as the sort
@@ -298,24 +263,16 @@ def make_cpra_step(
         # .flat(): out_specs shard leaf dim 0 of the flat padded layout
         res = phj_join(rik, riv, rok, rov, local_plan).flat()
         # diag = [exchange-cap overflow count, engine overflow count,
-        # max required probe span, heavy-build-cap overflow count,
-        # select-overflow count]: the overflow sources stay SEPARATE so
-        # the caller can re-plan each correctly (exchange -> more slack;
-        # window -> replan_from_span from the measured span; heavy -> a
-        # larger heavy_build_cap; select -> gather_select="flat")
+        # heavy-build-cap overflow count]: the overflow sources stay
+        # SEPARATE so the caller can re-plan each correctly (exchange ->
+        # more slack; engine -> downgrade_plan_opts or raise; heavy -> a
+        # larger heavy_build_cap)
         diag = jnp.stack([
             jax.lax.psum(overflow.astype(jnp.int32), axis),
             jax.lax.psum(
                 _engine_overflow(res, local_plan).astype(jnp.int32), axis
             ),
-            jax.lax.pmax(
-                _engine_span(res, local_plan).astype(jnp.int32), axis
-            ),
             jax.lax.psum(heavy_ovf.astype(jnp.int32), axis),
-            jax.lax.psum(
-                _engine_select_overflow(res, local_plan).astype(jnp.int32),
-                axis,
-            ),
         ])
         return res, heavy, diag
 
@@ -421,26 +378,20 @@ def make_cpra_step_pipelined(
     Returns fn(ik, iv, ok, ov) -> (JoinResult, overflow flag).
     """
     from ..engine.phj import (
-        JoinResult,
-        _merge_params,
+        _merge_build,
         _merge_probe,
         _merge_sort_side,
-        _merge_windows,
+        downgrade_plan_opts,
+        merge_cap,
     )
+    from ..utils.hashing import hashed_key as hk_of
 
     n_chips = mesh.shape[axis]
     c_bits = _owner_bits(n_chips)
-    # probe_chunks=1: each pipeline chunk's probe side is GLOBALLY
-    # hash-ordered below (_merge_sort_side), so the chunk-local window
-    # widening _merge_params applies for probe_chunks>1 layouts would be
-    # pure waste here (a window sized for spans that cannot occur)
-    # ... and the opportunistic plan flags are pre-downgraded: the
-    # pipelined step hardcodes the value-secondary build sort below and
-    # has NO retry loop, so a unique_build/rowbase violation counted by
-    # _merge_probe would dead-end as an unfixable overflow flag (the
-    # cli --chunks driver's advice of raising caps could never clear it)
-    from ..engine.phj import downgrade_plan_opts
-
+    # probe_chunks=1: each pipeline chunk's probe side is globally
+    # hash-ordered below.  unique_build is dropped up front: this step
+    # has no retry loop, so a counted violation would dead-end as an
+    # unfixable overflow flag
     local_plan = downgrade_plan_opts(dataclasses.replace(
         plan, skip_bits=plan.skip_bits + c_bits, probe_chunks=1
     ))
@@ -457,15 +408,8 @@ def make_cpra_step_pipelined(
                                        inner_cap)
         overflow = jnp.any(icnt > inner_cap)
         rik, riv = a2a(bik.reshape(-1)), a2a(biv.reshape(-1))
-        ni = rik.shape[0]
-        no = n_chips * chunk_cap
-        from ..utils.hashing import hashed_key as hk_of
-
-        tile, window, rows_total, cap = _merge_params(local_plan, ni, no)
-        bhk, bval = _merge_sort_side(
-            hk_of(rik, local_plan.factor), riv, rows_total * 128,
-            num_keys=2,
-        )
+        runs, viol = _merge_build(rik, riv, local_plan)
+        cap = merge_cap(local_plan, n_chips * chunk_cap)
         # probe side: all exchanges are emitted before any probe consumes
         # them, leaving the scheduler free to overlap
         o_ch = ok.reshape(chunks, -1)
@@ -482,21 +426,12 @@ def make_cpra_step_pipelined(
             ohk_s, ov_s = _merge_sort_side(
                 hk_of(rok, local_plan.factor), rov, cap
             )
-            wrow, wovf = _merge_windows(bhk, ohk_s, tile, window, rows_total)
-            parts.append(
-                _merge_probe(bhk, bval, ohk_s, ov_s, wrow, wovf,
-                             local_plan, tile, window, rows_total)
-            )
+            parts.append(_merge_probe(runs, viol, ohk_s, ov_s, local_plan))
         res = JoinResult(
             *(jnp.concatenate([getattr(p, f) for p in parts])
               for f in ("probe_keys", "probe_vals", "match_vals",
                         "match_cnts", "build_counts"))
         )
-        # merge-mode build_counts per part = [overflow_tiles, max_span,
-        # select_overflow]: fold the two overflow entries (span is a
-        # measurement, not a failure signal)
-        bc3 = res.build_counts.reshape(-1, 3)
-        overflow |= jnp.sum(bc3[:, 0] + bc3[:, 2]) > 0
         overflow = jax.lax.psum(overflow.astype(jnp.int32), axis) > 0
         return res, overflow
 
@@ -520,14 +455,14 @@ def make_cpra_step_2level(
     host_axis: str = "h",
     chip_axis: str = "c",
 ):
-    """Two-level exchange for multi-host pods: hash bits route first to a
-    HOST (one all_to_all over the host axis -- the DCN hop, paid once),
+    """Two-level exchange for multi-host meshes: hash bits route first to a
+    HOST (one all_to_all over the host axis -- the cross-host hop, paid once),
     then to a CHIP within the host (one all_to_all over the chip axis --
-    the ICI hop).  This is the reference's two-level placement
+    the within-host hop).  This is the reference's two-level placement
     (simd_hash_ratio routes tier-then-partition, phj.cpp:101-116)
     re-expressed as the per-host/per-chip partition map of SURVEY.md
     section 2.5; a flat exchange over H*C workers would instead push
-    every misrouted tuple across DCN twice.
+    every misrouted tuple across hosts twice.
 
     inner_cap/outer_cap: per-(src,dst) bucket capacities used at BOTH
     levels.  Returns fn(ik, iv, ok, ov) sharded over (host, chip) ->
@@ -561,15 +496,16 @@ def make_cpra_step_2level(
             )
             return a2a(bk.reshape(-1)), a2a(bv.reshape(-1))
 
-        # level 1: route by the top h_bits over DCN
+        # level 1: route by the top h_bits across hosts
         ik, iv = exchange(ik, iv, host_axis, H, h_bits, 0, inner_cap)
         ok, ov = exchange(ok, ov, host_axis, H, h_bits, 0, outer_cap)
-        # level 2: route by the next c_bits over ICI
+        # level 2: route by the next c_bits within the host
         ik, iv = exchange(ik, iv, chip_axis, C, c_bits, h_bits, inner_cap)
         ok, ov = exchange(ok, ov, chip_axis, C, c_bits, h_bits, outer_cap)
         # .flat(): out_specs shard leaf dim 0 of the flat padded layout
         res = phj_join(ik, iv, ok, ov, local_plan).flat()
-        # engine overflow (window tiles / radix pass flag / table slots)
+        # engine overflow (unique_build violations / radix pass count /
+        # table slots)
         # must surface here exactly as in make_cpra_step -- overflows are
         # values, never silent
         overflow |= _engine_overflow(res, local_plan) > 0
@@ -617,13 +553,11 @@ def cpra_join(
     (JoinResult, plan).
 
     Overflow (e.g. under unannounced skew) triggers up to `retries`
-    re-plans, with the two overflow sources handled separately from the
-    step's diag vector: exchange-cap overflow doubles the slack, probe-
-    window overflow re-plans the window from the MEASURED max span
-    exactly like the single-chip `engine.phj.join` (replan_from_span) --
-    blind doubling could land BELOW the auto-estimated window and never
-    converge.  Persistent overflow raises with a pointer to skew
-    handling."""
+    re-plans, with the overflow sources handled separately from the
+    step's diag vector: exchange-cap overflow doubles the slack, a
+    unique_build violation drops the flag (as the single-device
+    `engine.phj.join` does), heavy-build overflow raises the cap.
+    Persistent overflow raises with a pointer to skew handling."""
     n_chips = mesh.shape[axis]
     ni, no = len(inner_keys), len(outer_keys)
     if plan is None:
@@ -631,14 +565,13 @@ def cpra_join(
     if n_chips == 1 and not skew:
         # degenerate mesh: the owner exchange is the identity -- skip the
         # bucket pack entirely (its static caps would 3x the memory).
-        # The single-chip driver re-plans merge windows and raises on
-        # padded/radix overflow (engine.phj.join) -- never returns a
-        # silently truncated result.
+        # The single-device driver downgrades a wrong unique_build and
+        # raises on padded/radix overflow (engine.phj.join) -- never
+        # returns a silently truncated result.
         from ..engine.phj import join as single_chip_join
 
         return single_chip_join(
             inner_keys, inner_vals, outer_keys, outer_vals, plan,
-            window_retries=retries,
         )
     # stage boundary: fail fast with a diagnosis instead of hanging in
     # the exchange collective if a mesh participant is gone
@@ -656,8 +589,6 @@ def cpra_join(
     dev = lambda x: shard_null_padded(x, n_chips, sh)
     args = (dev(inner_keys), dev(inner_vals), dev(outer_keys),
             dev(outer_vals))
-    from ..engine.phj import replan_from_span
-
     for attempt in range(retries + 1):
         inner_cap = max(64, int(ni / (n_chips * n_chips) * slack * bias))
         outer_cap = max(
@@ -666,10 +597,7 @@ def cpra_join(
         step = make_cpra_step(mesh, plan, inner_cap, outer_cap, axis,
                               skew=skew, tier_ratio=tier_ratio, **skew_kw)
         res, heavy, diag = step(*args)
-        exch_ovf, eng_ovf, span, heavy_ovf, sel_ovf = (
-            int(diag[0]), int(diag[1]), int(diag[2]), int(diag[3]),
-            int(diag[4]),
-        )
+        exch_ovf, eng_ovf, heavy_ovf = (int(d) for d in diag)
         if exch_ovf == 0 and eng_ovf == 0 and heavy_ovf == 0:
             if skew:
                 return res, heavy, plan
@@ -683,30 +611,22 @@ def cpra_join(
             slack *= 2.0
         if heavy_ovf:
             # a truncated heavy-build extraction: only a larger cap
-            # fixes it (slack/window knobs cannot)
+            # fixes it (slack knobs cannot)
             skew_kw = dict(
                 skew_kw,
                 heavy_build_cap=4 * skew_kw.get("heavy_build_cap", 256),
             )
         if eng_ovf:
-            if not plan.probe_impl.startswith("merge"):
+            if plan.probe_impl != "merge":
                 raise RuntimeError(
                     "local join overflow on the padded path (table slots "
                     "or radix pass capacity exceeded): raise plan.slots "
-                    "or the pass fanout -- window re-planning cannot fix "
-                    "this"
+                    "or the pass fanout"
                 )
-            if sel_ovf:
-                # counted plan-optimization violation (rowbase slice
-                # miss / unique_build duplicates): downgrade to the
-                # unconditionally-exact flags, no geometry change
-                from ..engine.phj import downgrade_plan_opts
+            # duplicate build keys under unique_build: drop the flag
+            from ..engine.phj import downgrade_plan_opts
 
-                plan = downgrade_plan_opts(plan)
-            if eng_ovf > sel_ovf:
-                # size the next window from the measured span, shared
-                # with the single-chip re-planner
-                plan = replan_from_span(plan, span)
+            plan = downgrade_plan_opts(plan)
     # diagnose by the signal that actually persisted on the LAST attempt
     # (the separated diag exists exactly so these aren't conflated)
     if heavy_ovf:
@@ -721,9 +641,4 @@ def cpra_join(
             "enable skew=True (heavy-hitter replication) for this "
             "workload"
         )
-    raise RuntimeError(
-        f"probe window overflow persists after re-planning (measured "
-        f"span {span} slots): the duplicate-run span exceeds what the "
-        "gather-cap geometry can absorb -- shrink plan.tile or "
-        "probe_chunks, or enable skew=True"
-    )
+    raise RuntimeError("unique_build violation persists: retries=0")

@@ -1,7 +1,7 @@
-"""Distributed Grace join: BOTH relations larger than the MESH's HBM.
+"""Distributed Grace join: BOTH relations larger than the MESH's memory.
 
-The single-chip Grace driver (engine/grace.py) already removes both
-in-HBM size limits on one chip; this module scales it across a device
+The single-device Grace driver (engine/grace.py) already removes both
+device-memory size limits on one device; this module scales it across a device
 mesh -- the composition BASELINE config 5 (1B x 4B rows) asks for:
 the reference's fixed 4096-way decomposition + cross-thread memcpy
 re-aggregation (cpra2.cpp:1757-1906) re-expressed with the thread axis
@@ -10,14 +10,14 @@ replaced by BOTH the chunk-stream axis (out-of-core) and the mesh axis
 
 1. **Distributed partition pass.**  Each superchunk of (n_dev x
    chunk_rows) host rows shards over the mesh; every device runs ONE
-   bounded-fanout Pallas radix pass (ops/radix_partition_pallas.py) at
-   fanout F = 2^f_bits.  Because the pass emits partition-contiguous
-   regions ordered by the top hash bits, and the owner device of
-   partition p is its top log2(n_dev) bits, a single tiled
-   `all_to_all` over the flattened regions IS the owner exchange --
+   radix pass (ops/radix_partition.py) at fanout F = 2^f_bits.  Because
+   the pass emits partition-contiguous regions ordered by the top hash
+   bits, and the owner device of partition p is its top log2(n_dev) bits,
+   a single tiled `all_to_all` over the flattened regions IS the owner
+   exchange --
    device d receives exactly partitions [d*F/n, (d+1)*F/n) from every
    peer, no re-pack needed (the memcpy re-aggregation of
-   cpra2.cpp:1896-1904 as one collective, riding ICI).  The received
+   cpra2.cpp:1896-1904 as one collective).  The received
    fragments then append to partition files (engine/spill.py raw-u32
    format), keyed by owner device so the layout is what a pod's
    host-local spill would hold.
@@ -49,9 +49,7 @@ semantics for materializing consumers.  Verified end to end on a
    device d: per-partition columns load from the owner's files, pad to
    ONE shared (build, probe) cap, and a single compiled shard_map'd
    merge join serves all F/n rounds (per-partition shapes would
-   recompile per round).  Window overflow surfaces as a psum'd count +
-   pmax'd measured span, re-planned via engine.phj.replan_from_span
-   exactly like the single-chip drivers.
+   recompile per round).
 
 Phase-1 spills use the SAME sidecar fingerprint and file layout as
 engine/grace.py -- the partition files' content (as a multiset) depends
@@ -83,26 +81,19 @@ from ..engine.grace import (
     PartitionMeta,
     _append_fragments,
     _budget_caps_local,
-    _host_partition_fragments,
     _init_partition_files,
     _journal_append,
     _make_loader,
-    _on_tpu,
     _phase1,
     _phase2_journal,
     _side_fingerprint,
     _u64sum,
     _write_side_sidecar,
 )
-from ..engine.phj import JoinResult, phj_join, replan_from_span
-from ..ops.radix_partition_pallas import radix_partition_pallas
-from ..utils.hashing import hashed_key, mod_inverse_u32, np_hashed_key
-from .cpra import (
-    _engine_overflow,
-    _engine_select_overflow,
-    _engine_span,
-    _owner_bits,
-)
+from ..engine.phj import JoinResult, phj_join
+from ..ops.radix_partition import radix_partition
+from ..utils.hashing import hashed_key, mod_inverse_u32
+from .cpra import _engine_overflow, _owner_bits
 from .distributed import require_live_mesh
 
 
@@ -181,22 +172,19 @@ def _agree(flag: bool) -> bool:
 
 @functools.lru_cache(maxsize=64)
 def _make_partition_step(mesh: Mesh, axis: str, factor: int, f_bits: int,
-                         cap: int, interp: bool):
+                         cap: int):
     """One superchunk's distributed partition pass: per-device radix
     pass + the owner all_to_all.  Returns fn(keys, vals) -> (hk regions,
     val regions, counts, overflow), all but overflow sharded over
     `axis`; received layout per device is (n_src, F/n_dev, capr).
     lru-cached: a fresh jit(shard_map(closure)) per call would key the
     jit cache on a new function identity and recompile the identical
-    program for the probe side that the build side just compiled
-    (minutes each on a remote-compile backend)."""
+    program for the probe side that the build side just compiled."""
     n_dev = mesh.shape[axis]
 
     def step(keys, vals):
         hk = hashed_key(keys, factor)
-        bk, bv, cnts, ovf = radix_partition_pallas(
-            hk, vals, f_bits, cap=cap, interpret=interp
-        )
+        bk, bv, cnts, ovf = radix_partition(hk, vals, f_bits, cap=cap)
         # regions are partition-contiguous by the top f_bits; owner(p) =
         # top log2(n_dev) bits of p, so the tiled split IS the owner pack
         a2a = functools.partial(
@@ -204,14 +192,17 @@ def _make_partition_step(mesh: Mesh, axis: str, factor: int, f_bits: int,
             concat_axis=0, tiled=True,
         )
         rk, rv, rc = a2a(bk), a2a(bv), a2a(cnts)
+        # the largest partition count any device saw: the cap a retry
+        # needs (counts are exact even when a region overflows)
+        need = jax.lax.pmax(jnp.max(cnts), axis)
         ovf = jax.lax.psum((ovf != 0).astype(jnp.int32), axis)
-        return rk, rv, rc, ovf
+        return rk, rv, rc, ovf, need
 
     spec = P(axis)
     return jax.jit(
         jax.shard_map(
             step, mesh=mesh, in_specs=(spec, spec),
-            out_specs=(spec, spec, spec, P()), check_vma=False,
+            out_specs=(spec, spec, spec, P(), P()), check_vma=False,
         )
     )
 
@@ -219,7 +210,6 @@ def _make_partition_step(mesh: Mesh, axis: str, factor: int, f_bits: int,
 def _partition_side_dist(
     keys, vals, factor: int, f_bits: int, chunk_rows: int, d: str,
     side: str, mesh: Mesh, axis: str, fp: dict | None = None,
-    cap_retries: int = 3,
 ):
     """Stream one relation through the MESH's distributed radix pass;
     append each owner device's received fragments to the per-partition
@@ -240,7 +230,6 @@ def _partition_side_dist(
     counts = np.zeros(F, np.int64)
     hk_csums = [0] * F
     val_csums = [0] * F
-    interp = not _on_tpu()
     multi = jax.process_count() > 1
     local_pos = _local_positions(mesh, axis)
     owned = {dst * Fl + j for dst in local_pos for j in range(Fl)}
@@ -259,35 +248,13 @@ def _partition_side_dist(
         # null-key pads in the tail superchunk are dropped by the pass
         dk = _put_global(ck, mesh, axis)
         dv = _put_global(cv, mesh, axis)
-        cap = 0  # pass's own estimate first
-        for attempt in range(cap_retries + 1):
-            step = _make_partition_step(
-                mesh, axis, factor, f_bits, cap, interp
-            )
-            rk, rv, rc, ovf = step(dk, dv)
-            if int(ovf) == 0:
-                break
-            # overflow is a value: retry this superchunk, doubled cap
-            cap = 2 * (rk.shape[0] // (n_dev * F))
-        else:
-            # a persistent overflow is the pass's per-tile RUN bound
-            # (skew: one hot key dominating a shard), which capacity
-            # growth can never fix.  Partition this superchunk exactly
-            # on the host instead: the owner exchange here only routes
-            # fragments to files, and file CONTENT is a multiset -- the
-            # host split appends the identical multiset, so spills stay
-            # interchangeable and checksums/counts are unaffected.
-            # Every host computes the full split (replicated inputs);
-            # each appends only its OWNED partitions.
-            frags, _ = _host_partition_fragments(
-                np_hashed_key(ck, factor), cv, f_bits)
-            if multi:
-                frags = [
-                    (fk, fv) if p in owned else (fk[:0], fv[:0])
-                    for p, (fk, fv) in enumerate(frags)
-                ]
-            _append_fragments(d, side, frags, counts, hk_csums, val_csums)
-            continue
+        step = _make_partition_step(mesh, axis, factor, f_bits, 0)
+        rk, rv, rc, ovf, need = step(dk, dv)
+        if int(ovf):
+            # skew: size the regions from the exact counts and rerun
+            step = _make_partition_step(mesh, axis, factor, f_bits,
+                                        int(need))
+            rk, rv, rc, ovf, need = step(dk, dv)
         capr = rk.shape[0] // (n_dev * F)
         block = n_dev * Fl * capr  # one dst device's received rows
         if multi:
@@ -324,27 +291,15 @@ def _partition_side_dist(
 @functools.lru_cache(maxsize=64)
 def _make_join_step(mesh: Mesh, axis: str, local_plan: JoinPlan):
     """Phase-2 round: every device joins its round's partition pair.
-    diag = [psum'd engine overflow count, pmax'd measured span, psum'd
-    rowbase select-overflow count] (the select count is the part of
-    entry 0 whose fix is gather_select="flat", not a wider window).
-    lru-cached for the same recompile reason as _make_partition_step."""
+    Returns (result, psum'd engine overflow count).  lru-cached for the
+    same recompile reason as _make_partition_step."""
 
     def step(bk, bv, pk, pv):
         # .flat(): out_specs shard leaf dim 0 of the flat padded layout
         res = phj_join(bk, bv, pk, pv, local_plan).flat()
-        diag = jnp.stack([
-            jax.lax.psum(
-                _engine_overflow(res, local_plan).astype(jnp.int32), axis
-            ),
-            jax.lax.pmax(
-                _engine_span(res, local_plan).astype(jnp.int32), axis
-            ),
-            jax.lax.psum(
-                _engine_select_overflow(res, local_plan).astype(jnp.int32),
-                axis,
-            ),
-        ])
-        return res, diag
+        ovf = jax.lax.psum(
+            _engine_overflow(res, local_plan).astype(jnp.int32), axis)
+        return res, ovf
 
     spec = P(axis)
     return jax.jit(
@@ -368,12 +323,11 @@ def grace_join_dist(
     plan: JoinPlan | None = None,
     partition_budget_rows: int = 220_000_000,
     on_partition=None,
-    window_retries: int = 3,
     axis: str = "x",
     liveness_timeout_s: float | None = 30.0,
 ) -> GraceResult:
     """Join two host-resident relations over a device mesh; neither
-    relation needs to fit the mesh's combined HBM.  All four inputs are
+    relation needs to fit the mesh's combined device memory.  All four inputs are
     numpy arrays or np.memmap; chunk_rows is rows per device per
     phase-1 superchunk.
 
@@ -551,39 +505,18 @@ def grace_join_dist(
     for idx, r in enumerate(live_rounds):
         parts = round_parts(r)
         args = pending if pending is not None else build_args(r)
-        res = None
-        for attempt in range(window_retries + 1):
-            res, diag = _make_join_step(mesh, axis, local)(*args)
-            # double buffering: the next round's disk reads + H2D go
-            # out while this round's join is still in flight on the
-            # mesh (the diag read below is what forces completion)
-            if attempt == 0:
-                pending = (build_args(live_rounds[idx + 1])
-                           if idx + 1 < len(live_rounds) else None)
-            # diag is out_specs P() == fully replicated: every process
-            # holds an addressable copy, so np.asarray works in both
-            # controller models
-            if not local.probe_impl.startswith("merge") or int(
-                diag[0]
-            ) == 0:
-                break
-            span = int(diag[1])
-            sel_ovf = int(diag[2])
-            win_ovf = int(diag[0]) - sel_ovf
-            res = None
-            if sel_ovf:
-                # counted plan-optimization violation: downgrade (exact
-                # for any input); no geometry change needed
-                from ..engine.phj import downgrade_plan_opts
-
-                local = downgrade_plan_opts(local)
-            if win_ovf:
-                local = replan_from_span(local, span)
-        if res is None or (
-            local.probe_impl.startswith("merge") and int(diag[0]) != 0
-        ):
+        res, ovf = _make_join_step(mesh, axis, local)(*args)
+        # double buffering: the next round's disk reads + H2D go out
+        # while this round's join is still in flight on the mesh (the
+        # overflow read below is what forces completion)
+        pending = (build_args(live_rounds[idx + 1])
+                   if idx + 1 < len(live_rounds) else None)
+        # ovf is out_specs P() == fully replicated: every process holds
+        # an addressable copy, so int() works in both controller models
+        if int(ovf):
             raise RuntimeError(
-                f"round {r}: window overflow persists across re-plans"
+                f"round {r}: the local join reported {int(ovf)} "
+                "overflowed partitions"
             )
         cap_out = res.match_cnts.shape[0] // n_dev
         if multi:
@@ -625,18 +558,12 @@ def grace_join_dist(
                 raw_pk = (
                     pk.astype(np.uint64) * inv % (1 << 32)
                 ).astype(np.uint32)
-                # build_counts carries the single-chip 3-entry merge
-                # diag contract [window-overflow tiles, max span,
-                # plan-opt violations] (NOT the raw mesh-concatenated
-                # per-device build_counts).  diag[0] sums BOTH overflow
-                # channels (_engine_overflow), so the window-only count
-                # is recovered by subtracting the violation entry --
-                # a consumer re-planning from entry 0 must not treat a
-                # select-only violation as a window problem
-                dg = np.asarray(diag)
+                # build_counts carries the single-device 3-entry merge
+                # layout (NOT the raw mesh-concatenated per-device
+                # build_counts); the round's overflow check above passed
                 res_slice = JoinResult(
                     pk, pv_blocks[dpos], mv_blocks[dpos], mc_d,
-                    np.asarray([dg[0] - dg[2], dg[1], dg[2]], np.int32),
+                    np.zeros(3, np.int32),
                 )
                 on_partition(metas[p], res_slice, raw_pk)
     jt_global = _allsum_u64(jt_local)

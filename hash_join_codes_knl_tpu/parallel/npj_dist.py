@@ -2,9 +2,9 @@
 
 The reference NPJ (npj.cpp:769-927) has every thread build into ONE shared
 open-addressing table through CAS, then every thread probe its outer slice
-against it.  The TPU translation of "one table all workers can reach" is a
-table REPLICATED per chip (SURVEY.md section 2.5, shared-state row): chips
-`all_gather` the sharded build side over ICI, each builds the identical
+against it.  The translation of "one table all workers can reach" is a
+table REPLICATED per device (SURVEY.md section 2.5, shared-state row):
+devices `all_gather` the sharded build side, each builds the identical
 global table locally (the build is deterministic and insertion-order
 independent, engine/npj.py), and probes only its own outer shard.  No
 communication happens during the probe -- exactly the reference's phase
@@ -18,8 +18,6 @@ is small; PHJ/CPRA own every other regime, as on KNL.
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,40 +28,33 @@ from ..engine.npj import (
     npj_build,
     npj_probe,
     npj_probe_sorted,
+    npj_runs,
     plan_npj,
 )
 
 
-def make_npj_step(mesh: Mesh, plan: NpjPlan, axis: str = "x",
-                  probe_window: int = 0):
+def make_npj_step(mesh: Mesh, plan: NpjPlan, axis: str = "x"):
     """Jitted distributed NPJ step: (ik, iv, ok, ov) sharded along `axis`
     -> (match_vals, match_cnts aligned to the local outer shard,
-    join_tuples scalar, build_overflow scalar, window_overflow scalar).
-    The two overflow signals stay SEPARATE (psum'd each): a build-table
-    margin overflow can only be fixed by re-sizing the table, a sorted-
-    probe window overflow by widening the window -- folding them made the
-    driver burn window-doubling retries on unfixable build overflows."""
+    join_tuples scalar, build_overflow scalar).  The build overflow (a
+    table-margin overflow of the chain walk's table) is psum'd; the
+    sorted probe builds no table and reports 0."""
 
     def local_step(ik, iv, ok, ov):
         # build phase: replicate the build side (the "shared table"),
         # build the identical table on every chip
         gik = jax.lax.all_gather(ik, axis, tiled=True)
         giv = jax.lax.all_gather(iv, axis, tiled=True)
-        tk, tv, bovf, max_disp = npj_build(gik, giv, plan)
         # probe phase: local outer shard only, no communication
         if plan.probe_impl == "chain":
+            tk, tv, bovf, _ = npj_build(gik, giv, plan)
             mv, mc = npj_probe(tk, tv, ok, plan)
-            wovf = jnp.zeros((), jnp.int32)
         else:
-            window = probe_window or plan.window or plan.auto_window(
-                ok.shape[0]
-            )
-            mv, mc, wovf = npj_probe_sorted(tk, tv, ok, plan, max_disp,
-                                            window)
+            mv, mc = npj_probe_sorted(npj_runs(gik, giv, plan), ok, plan)
+            bovf = jnp.zeros((), jnp.int32)
         total = jax.lax.psum(jnp.sum(mc.astype(jnp.uint32)), axis)
         bovf = jax.lax.psum(bovf, axis)
-        wovf = jax.lax.psum(wovf, axis)
-        return mv, mc, total, bovf, wovf
+        return mv, mc, total, bovf
 
     spec = P(axis)
     return jax.jit(
@@ -71,7 +62,7 @@ def make_npj_step(mesh: Mesh, plan: NpjPlan, axis: str = "x",
             local_step,
             mesh=mesh,
             in_specs=(spec, spec, spec, spec),
-            out_specs=(spec, spec, P(), P(), P()),
+            out_specs=(spec, spec, P(), P()),
             check_vma=False,
         )
     )
@@ -96,37 +87,11 @@ def npj_join_dist(inner_keys, inner_vals, outer_keys, outer_vals,
     dev = lambda x: shard_null_padded(x, n_dev, sh)
     args = (dev(inner_keys), dev(inner_vals), dev(outer_keys),
             dev(outer_vals))
-    window = plan.window or plan.auto_window(
-        len(outer_keys) // mesh.shape[axis]
-    )
-    size_cap = min(plan.table_size, plan.max_window)
-    for _ in range(4):  # sorted-probe window re-planning, as in npj_join
-        step = make_npj_step(mesh, plan, axis, probe_window=window)
-        mv, mc, total, bovf, wovf = step(*args)
-        if int(bovf) > 0:
-            # a table-margin overflow cannot be fixed by window widening:
-            # fail immediately instead of burning recompile retries
-            raise RuntimeError(
-                f"NPJ build overflow: {int(bovf)} tuples past the table "
-                "margin; increase NpjPlan.margin or lower the load factor"
-            )
-        if int(wovf) == 0 or plan.probe_impl == "chain" or (
-            window >= size_cap
-        ):
-            break
-        # an undersized EXPLICIT window jumps straight to the auto
-        # estimate (as in engine.npj.npj_join); past that, double --
-        # plain doubling from a tuned single-shard window could burn all
-        # retries below the size the auto formula would pick first try
-        window = min(
-            max(2 * window,
-                plan.auto_window(len(outer_keys) // mesh.shape[axis])),
-            size_cap,
-        )
-    if int(wovf) > 0:
+    mv, mc, total, bovf = make_npj_step(mesh, plan, axis)(*args)
+    if int(bovf) > 0:
         raise RuntimeError(
-            "NPJ sorted-probe window overflow persists at the widest "
-            "compilable window; use the PHJ merge engine for this shape"
+            f"NPJ build overflow: {int(bovf)} tuples past the table "
+            "margin; increase NpjPlan.margin or lower the load factor"
         )
     n_out = len(outer_keys)
     return (np.asarray(mv)[:n_out], np.asarray(mc)[:n_out], int(total),

@@ -3,7 +3,7 @@
 Zipf-skewed probe streams concentrate mass on a few keys; the owner-hash
 exchange would route all copies of a heavy key to one chip and overflow its
 bucket (the reference has no answer to this -- its shared-memory threads just
-contend, phj.cpp:1715-1770).  The TPU design replicates the heavy build
+contend, phj.cpp:1715-1770).  This design replicates the heavy build
 tuples instead of exchanging the heavy probe tuples:
 
 1. every chip aggregates a leading sample of its local probe shard (the

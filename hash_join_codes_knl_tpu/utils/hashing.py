@@ -7,8 +7,8 @@ scalar form npj.cpp:199-200):
     h  = (uint64(h) * nbins) >> 32     # range-reduce to [0, nbins)
 
 On KNL this took a 17-instruction AVX-512 dance because the ISA lacks a
-32x32->high32 multiply (npj.cpp:90-106); on TPU it is four u32 VPU ops via a
-16-bit split (JAX default is 32-bit ints, and Pallas kernels stay in u32).
+32x32->high32 multiply (npj.cpp:90-106); here it is a few u32 ops via a
+16-bit split (JAX's default integers are 32-bit).
 
 The two-level tier hash (phj.cpp:101-116 simd_hash_ratio) routes each tuple
 first to one of two memory tiers by a 100-bin hash against ``cut``, then to a
@@ -77,9 +77,9 @@ def np_hash_ratio(
 def mulhi32(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """High 32 bits of the 64-bit product of two uint32 arrays.
 
-    Pure u32 arithmetic (16-bit split with carry propagation) so it lowers to
-    native 32-bit VPU ops inside Pallas kernels -- the TPU replacement for the
-    KNL _mm512_mul_epu32 interleave trick (npj.cpp:90-106).
+    Pure u32 arithmetic (16-bit split with carry propagation), so it needs
+    no 64-bit integers -- the replacement for the KNL _mm512_mul_epu32
+    interleave trick (npj.cpp:90-106).
     """
     a = a.astype(jnp.uint32)
     b = b.astype(jnp.uint32)
@@ -103,7 +103,7 @@ def hashed_key(keys: jnp.ndarray, factor) -> jnp.ndarray:
 
     For power-of-two fanouts, range_hash(k, f, 2^b) == hashed_key(k, f) >> (32-b),
     which is what the multi-pass radix partitioner exploits: successive passes
-    consume successive high-bit groups of one scrambled key (the TPU analog of
+    consume successive high-bit groups of one scrambled key (the analog of
     the reference's per-pass simd_hash fanout, phj.cpp:1791-1808).
     """
     return keys.astype(jnp.uint32) * jnp.uint32(factor)

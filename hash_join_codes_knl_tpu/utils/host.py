@@ -1,25 +1,9 @@
-"""Shared host-side helpers: platform detection + the u64 checksum.
-
-One definition each.  engine/phj, engine/npj, engine/grace,
-engine/stream, engine/spill, and relation.py previously carried private
-copies of these two functions; the copies had already drifted (only
-relation.py used the native checksum kernel).
-"""
+"""Shared host-side helper: the u64 checksum (one definition for the
+spill, stream, grace and relation modules)."""
 
 from __future__ import annotations
 
 import numpy as np
-
-
-def on_tpu() -> bool:
-    """True when the default jax backend is a real accelerator (the
-    engine picks Pallas lowerings on hardware, jnp oracles on CPU)."""
-    import jax
-
-    try:
-        return jax.devices()[0].platform != "cpu"
-    except Exception:
-        return False
 
 
 # below this, thread spawn + ctypes overhead beats numpy's single pass

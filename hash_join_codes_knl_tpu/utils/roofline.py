@@ -1,71 +1,64 @@
-"""Roofline accounting: achieved bandwidth vs the chip's HBM envelope.
+"""Roofline accounting: achieved bandwidth vs the device's memory peak.
 
-The reference reports raw seconds (npj.cpp:1104-1114); the BASELINE target
-for this framework is expressed as a fraction of the per-chip HBM roofline
-(SURVEY.md section 6), so the bench and the CLI report, per phase:
+The reference reports raw seconds (npj.cpp:1104-1114); the CLI's
+--timelog adds, per phase:
 
-- the phase's modeled minimum HBM traffic (bytes any implementation of that
-  phase must move at least once),
+- the phase's modeled minimum device-memory traffic (bytes any
+  implementation of that phase must move at least once),
 - achieved bytes/s against wall time,
-- the fraction of the chip's peak HBM bandwidth that represents.
+- the fraction of the device's peak memory bandwidth that represents.
 
 Traffic model for the merge-mode PHJ pipeline (engine/phj.py):
 
 - prep (partition-as-sort): lower bound = one read + one write of both
-  relations' (key, val) streams.  The actual XLA bitonic sort moves a large
-  multiple of this (it is compute-bound, not bandwidth-bound) -- which is
-  precisely what the roofline fraction makes visible.
-- probe: reads the sorted probe keys, writes (match_val, match_cnt), and
-  streams each tile's build window once.
+  relations' (key, val) streams.  A sort moves a multiple of this, which
+  is what the roofline fraction makes visible.
+- probe: reads the sorted probe keys and values and writes
+  (match_val, match_cnt).
 """
 
 from __future__ import annotations
 
 import jax
 
-# Peak HBM bandwidth per chip, bytes/s (public chip specs).
-_HBM_PEAK = {
-    "TPU v4": 1_228e9,
-    "TPU v5 lite": 819e9,  # v5e
-    "TPU v5": 2_765e9,  # v5p
-    "TPU v6 lite": 1_640e9,  # v6e / Trillium
-    "TPU v7": 7_400e9,  # Ironwood
+# Peak device-memory bandwidth in bytes/s, keyed by jax's device_kind.
+# NVIDIA H100 SXM5 80 GB: 3.35 TB/s of HBM3 (NVIDIA H100 Tensor Core GPU
+# data sheet).
+HBM_PEAK = {
+    "NVIDIA H100 80GB HBM3": 3.35e12,
 }
-_CPU_FALLBACK = 50e9
 
 
-def hbm_peak_bytes_per_s() -> tuple[float, str]:
-    """(peak HBM bandwidth of device 0, the matched table entry).  An
-    unrecognized device_kind falls back to the v5e figure with an
-    'assumed:' label so the report shows the peak is a guess rather
-    than silently mislabeling fractions on new/renamed chips."""
-    dev = jax.devices()[0]
-    if dev.platform == "cpu":
-        return _CPU_FALLBACK, "cpu (nominal DDR)"
-    kind = getattr(dev, "device_kind", "")
-    for prefix in sorted(_HBM_PEAK, key=len, reverse=True):
-        if kind.startswith(prefix):
-            return _HBM_PEAK[prefix], prefix
-    return _HBM_PEAK["TPU v5 lite"], f"assumed: v5e peak for {kind!r}"
+def hbm_peak_bytes_per_s(device_kind: str | None = None) -> float:
+    """Peak memory bandwidth of `device_kind` (default: device 0).
+    Raises KeyError for a device the table does not list -- the CPU
+    included -- rather than dividing by a guessed peak."""
+    if device_kind is None:
+        device_kind = jax.devices()[0].device_kind
+    try:
+        return HBM_PEAK[device_kind]
+    except KeyError:
+        raise KeyError(
+            f"no memory-bandwidth peak recorded for device {device_kind!r}"
+        ) from None
 
 
-def merge_phj_traffic(ni: int, no: int, tile: int, window: int) -> dict:
-    """Per-phase minimum HBM bytes for the merge-mode PHJ pipeline, keyed
-    by the staged phase names (engine/phj.py phj_join_merge_staged)."""
-    n_tiles = -(-no // tile)
+def merge_phj_traffic(ni: int, no: int) -> dict:
+    """Per-phase minimum device-memory bytes for the merge-mode PHJ
+    pipeline, keyed by the staged phase names (engine/phj.py
+    phj_join_merge_staged)."""
     return {
         "partition_build": 2 * 8 * ni,  # r+w of (key,val) once
         "partition_probe": 2 * 8 * no,
-        "windows": 4 * (2 * n_tiles + ni // 128),  # tile bounds + directory
-        "probe": 4 * no + 8 * no + 8 * window * n_tiles,
+        "probe": 8 * no + 8 * no,  # read (key,val), write (val,cnt)
     }
 
 
-def roofline_report(phase_seconds: dict, traffic: dict) -> dict:
+def roofline_report(phase_seconds: dict, traffic: dict,
+                    device_kind: str | None = None) -> dict:
     """Achieved bytes/s and roofline fraction per phase + overall."""
-    peak, matched = hbm_peak_bytes_per_s()
-    out = {"hbm_peak_gbps": round(peak / 1e9, 1),
-           "hbm_peak_source": matched}
+    peak = hbm_peak_bytes_per_s(device_kind)
+    out = {"hbm_peak_gbps": round(peak / 1e9, 1)}
     tot_b = tot_s = 0.0
     for phase, sec in phase_seconds.items():
         b = traffic.get(phase)

@@ -5,9 +5,8 @@ workload (weak scaling): on an M-device mesh the relations are M x the
 single-chip sizes, so perfect scaling keeps seconds flat and efficiency =
 t(1) / t(M).
 
-On this dev box there is one real TPU chip, so --cpu runs the harness on
-the virtual 8-device CPU mesh (validates the sharding + the math, not the
-silicon); on a pod slice, run it as-is under `jax.distributed`.
+--cpu runs the harness on the virtual 8-device CPU mesh (validates the
+sharding + the math, not the silicon); on a multi-GPU host, run it as-is.
 
 CPU-mesh note: the physical cores SERIALIZE the m virtual devices once
 m exceeds them, so raw t(1)/t(m) trends to cores/m by construction.
@@ -98,7 +97,7 @@ def main():
         def run(r):
             res, _, diag = step(ik, iv, ok, ov ^ jnp.uint32(r))
             assert int(diag[0]) == 0, "exchange overflow"
-            assert int(diag[1]) == 0, "window overflow"
+            assert int(diag[1]) == 0, "local join overflow"
             return int(np.asarray(res.join_tuples).sum())
 
         jt = run(0)
@@ -160,7 +159,7 @@ def main():
             "efficiency multiplies by m/min(m, cores) to remove exactly "
             "that bound (no correction while m <= cores). Figures at "
             "heavy oversubscription are thrash-dominated, not the "
-            "algorithm. Real-ICI validation needs hardware (NEXT.md #1).")
+            "algorithm. chip_smoke.py --four runs the mesh on four GPUs.")
     with open(args.out, "w") as f:
         json.dump(results, f, indent=1)
     print(f"wrote {args.out}")

@@ -1,7 +1,8 @@
 """Plan policies: reference pass policy parity + auto-plan invariants."""
 
+import pytest
+
 from hash_join_codes_knl_tpu.engine.config import (
-    JoinPlan,
     plan_join,
     reference_pass_plan,
 )
@@ -29,53 +30,16 @@ def test_plan_join_invariants():
         assert p.num_partitions == 1 << p.p_bits
 
 
-def test_replan_from_span_stays_under_tile_aware_cap():
-    """Property: for ANY (plan geometry, measured span), the re-planned
-    window is a 128-multiple strictly within the compile ceiling of the
-    plan's (possibly shrunk) tile -- one chunk past it crashes the
-    remote compiler or silently drops to the dense sweep."""
-    import numpy as np
-
-    from hash_join_codes_knl_tpu.engine.config import JoinPlan
-    from hash_join_codes_knl_tpu.engine.phj import (
-        replan_from_span,
-        replan_window_cap,
-    )
-
-    rng = np.random.default_rng(17)
-    for _ in range(300):
-        tile = 128 * int(rng.integers(1, 40))
-        C = int(rng.integers(0, 80))
-        span = int(rng.integers(1, 3_000_000))
-        plan = JoinPlan(p_bits=4, slots=128, tile=tile, pass_bits=(4,),
-                        probe_chunks=C)
-        new = replan_from_span(plan, span)
-        assert new.window % 128 == 0
-        assert new.window <= replan_window_cap(new.tile), (
-            tile, C, span, new)
-        assert new.tile % 128 == 0 and new.tile >= 128
+@pytest.mark.parametrize("ni,no", [(16_000_000, 256_000_000),
+                                   (64_000_000, 1_000_000_000),
+                                   (4_000_000, 16_000_000), (1, 1)])
+def test_plan_join_merge_defaults(ni, no):
+    """The merge engine sorts the probe side globally at every size (no
+    window or chunk rules remain), with a 128-multiple pad quantum."""
+    p = plan_join(ni, no)
+    assert p.probe_impl == "merge" and p.probe_chunks == 0
+    assert p.tile == 2048 and not p.unique_build
 
 
-def test_merge_params_auto_window_always_compilable():
-    """Property: auto windows (no explicit plan.window) never exceed
-    the tile-aware ceiling at any geometry, including unchunked
-    huge-build/small-probe shapes."""
-    import numpy as np
-
-    from hash_join_codes_knl_tpu.engine.config import JoinPlan
-    from hash_join_codes_knl_tpu.engine.phj import (
-        _merge_params,
-        replan_window_cap,
-    )
-
-    rng = np.random.default_rng(19)
-    for _ in range(200):
-        tile = 128 * int(rng.integers(1, 40))
-        C = int(rng.integers(0, 66))
-        ni = int(rng.integers(1, 1 << 27))
-        no = int(rng.integers(1, 1 << 27))
-        plan = JoinPlan(p_bits=4, slots=128, tile=tile, pass_bits=(4,),
-                        probe_chunks=C)
-        t, window, rows_total, cap = _merge_params(plan, ni, no)
-        assert window % 128 == 0
-        assert window <= replan_window_cap(tile), (tile, C, ni, no, window)
+def test_plan_join_keeps_requested_chunks():
+    assert plan_join(4096, 65536, tile=512, probe_chunks=8).probe_chunks == 8

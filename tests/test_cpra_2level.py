@@ -60,7 +60,7 @@ def test_two_level_padded_overflow_detected():
     mesh = jax.make_mesh((H, C), ("h", "c"))
     # slots=1 guarantees occupancy overflow on 2048 build tuples / 4 parts
     plan = JoinPlan(p_bits=2, slots=1, tile=128, pass_bits=(2,),
-                    probe_impl="jnp")
+                    probe_impl="table")
     step = make_cpra_step_2level(mesh, plan, inner_cap=2048, outer_cap=4096)
     sh = NamedSharding(mesh, P(("h", "c")))
     dev = lambda x: jax.device_put(np.asarray(x), sh)

@@ -34,9 +34,9 @@ def test_grace_dist_matches_oracle(tmp_path, workload):
     rows = []
 
     def collect(meta, res, raw_pk):
-        # on_partition gets the single-chip drivers' 3-entry merge-diag
-        # contract in build_counts ([overflow, span, select-overflow]),
-        # not the raw mesh-concatenated per-device array
+        # on_partition gets the single-device drivers' 3-entry merge
+        # layout in build_counts, not the raw mesh-concatenated
+        # per-device array
         assert len(np.asarray(res.build_counts)) == 3
         mc = np.asarray(res.match_cnts)
         m = mc == 1

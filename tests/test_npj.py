@@ -66,8 +66,8 @@ def test_npj_duplicate_build_keys_counted():
 
 
 def test_npj_sorted_probe_matches_chain_walk():
-    """The sorted window probe and the chain-walk oracle must agree
-    exactly, including duplicate build keys and missing probes."""
+    """The sorted probe and the chain-walk oracle must agree exactly,
+    including duplicate build keys and missing probes."""
     import dataclasses
 
     rng = np.random.default_rng(77)
@@ -79,32 +79,10 @@ def test_npj_sorted_probe_matches_chain_walk():
     ).astype(np.uint32)
     mv0, mc0, plan = npj_join(ik, iv, ok, ok)
     assert plan.probe_impl == "sorted"
-    chain = dataclasses.replace(plan, probe_impl="chain", window=0)
+    chain = dataclasses.replace(plan, probe_impl="chain")
     mv1, mc1, _ = npj_join(ik, iv, ok, ok, chain)
     np.testing.assert_array_equal(np.asarray(mc0), np.asarray(mc1))
     np.testing.assert_array_equal(np.asarray(mv0), np.asarray(mv1))
-
-
-def test_npj_sorted_probe_window_replan():
-    """A deliberately tiny window must overflow (a value, not silent) and
-    npj_join must re-plan to a clean window."""
-    import dataclasses
-
-    rng = np.random.default_rng(78)
-    ik = np.unique(rng.integers(1, 2**32, 5000, dtype=np.uint32))[:4096]
-    iv = ik * np.uint32(3)
-    ok = ik[rng.integers(0, 4096, 8192)].astype(np.uint32)
-    from hash_join_codes_knl_tpu.engine.npj import npj_build, npj_probe_sorted
-
-    plan = plan_npj(4096)
-    tk, tv, _, max_disp = npj_build(jnp.asarray(ik), jnp.asarray(iv), plan)
-    _, _, wovf = npj_probe_sorted(tk, tv, jnp.asarray(ok), plan, max_disp,
-                                  128)
-    assert int(wovf) > 0  # 8192 probes over 8K buckets: spans >> 128
-    tiny = dataclasses.replace(plan, window=128)
-    mv, mc, final = npj_join(ik, iv, ok, ok, tiny)
-    assert int(np.asarray(mc).sum()) == 8192
-    assert final.window > 128  # re-planned
 
 
 def test_npj_unique_mode_matches_default():
@@ -120,55 +98,15 @@ def test_npj_unique_mode_matches_default():
     ok = ik[rng.integers(0, 4096, 16384)].astype(np.uint32)
     mv0, mc0, plan = npj_join(ik, iv, ok, ok)
     # unique-mode early retirement only exists on the chain walk
-    plan_u = dataclasses.replace(plan, unique=True, probe_impl="chain",
-                                 window=0)
+    plan_u = dataclasses.replace(plan, unique=True, probe_impl="chain")
     mv1, mc1, _ = npj_join(ik, iv, ok, ok, plan_u)
     np.testing.assert_array_equal(np.asarray(mv0), np.asarray(mv1))
     np.testing.assert_array_equal(np.asarray(mc0), np.asarray(mc1))
 
 
-def test_npj_explicit_window_wider_than_table():
-    """An explicit window wider than the whole table must clamp to
-    whole-table coverage (unclamped it would compute NEGATIVE window
-    rows -- an out-of-bounds DMA on hardware) and still probe exactly."""
-    import dataclasses
-
-    from hash_join_codes_knl_tpu.engine.npj import npj_probe_sorted
-
-    rng = np.random.default_rng(81)
-    ik = np.unique(rng.integers(1, 2**32, 3000, dtype=np.uint32))[:2048]
-    iv = ik * np.uint32(5)
-    ok = np.concatenate(
-        [ik[rng.integers(0, 2048, 3000)],
-         rng.integers(1, 2**32, 1096, dtype=np.uint32)]
-    ).astype(np.uint32)
-    plan = plan_npj(2048)
-    tk, tv, bovf, max_disp = npj_build(jnp.asarray(ik), jnp.asarray(iv),
-                                       plan)
-    assert int(bovf) == 0
-    huge = int(tk.shape[0]) * 4  # far wider than the table
-    mv, mc, wovf = npj_probe_sorted(tk, tv, jnp.asarray(ok), plan,
-                                    max_disp, huge)
-    assert int(wovf) == 0
-    mv, mc = np.asarray(mv), np.asarray(mc)
-    m = mc == 1
-    got = multiset_digest(ok[m], ok[m], mv[m])
-    want = multiset_digest(*join_oracle(ik, iv, ok, ok))
-    assert got == want
-
-
-def test_npj_sorted_const_tile_bucket_collision(monkeypatch):
-    """A probe tile filled with ONE hot key plus a bucket-colliding
-    distinct key interleaved: the Pallas kernel's constant-tile fast
-    path (first == last -> broadcast row 0) must not hand the collider
-    the hot key's matches.  Probes are (h0, key)-sorted so first==last
-    still implies a one-key tile (regression: h0-only sorting let the
-    stable sort keep the collider INSIDE the run).  Runs the real
-    kernel in interpret mode -- the jnp oracle has no fast path."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from hash_join_codes_knl_tpu.engine import npj as npj_mod
-
+def test_npj_sorted_const_tile_bucket_collision():
+    """A probe side of ONE hot key plus a distinct key sharing its home
+    bucket: the collider must get its own row, never the hot key's."""
     rng = np.random.default_rng(5)
     ik = np.unique(rng.integers(1, 2**32, 60_000, dtype=np.uint32))[:32768]
     iv = (np.arange(len(ik), dtype=np.uint32) + 1) * np.uint32(7)
@@ -180,72 +118,75 @@ def test_npj_sorted_const_tile_bucket_collision(monkeypatch):
     a = ik[order[dup[0]]]
     b = ik[order[dup[0] + 1]]
     assert a != b and h0[order[dup[0]]] == h0[order[dup[0] + 1]]
-    ok = np.full(plan.tile, a, np.uint32)
-    ok[plan.tile // 2] = b  # stable h0-sort would leave b mid-run
-    tk, tv, ovf, max_disp = npj_build(jnp.asarray(ik), jnp.asarray(iv),
-                                      plan)
-    assert int(ovf) == 0
-    window = plan.auto_window(len(ok), disp=int(max_disp) + 128)
-    monkeypatch.setattr(npj_mod, "_on_tpu", lambda: True)
-    with pltpu.force_tpu_interpret_mode():
-        mv, mc, wovf = npj_mod.npj_probe_sorted(
-            tk, tv, jnp.asarray(ok), plan, max_disp, window
-        )
-    assert int(wovf) == 0
-    mv, mc = np.asarray(mv), np.asarray(mc)
-    va = int(iv[ik == a][0])
-    vb = int(iv[ik == b][0])
-    i_b = plan.tile // 2
-    assert mc[i_b] == 1 and mv[i_b] == vb, "collider got the hot key's row"
-    assert mc[0] == 1 and mv[0] == va
+    ok = np.full(2048, a, np.uint32)
+    ok[1024] = b
+    for order_kw in ("input", "sorted"):
+        out = npj_join(ik, iv, ok, ok, order=order_kw)
+        if order_kw == "input":
+            mv, mc, _ = out
+            keys = ok
+        else:
+            keys, _, mv, mc, _ = out
+        keys, mv, mc = (np.asarray(x) for x in (keys, mv, mc))
+        va = int(iv[ik == a][0])
+        vb = int(iv[ik == b][0])
+        assert (mc == 1).all()
+        assert (mv[keys == a] == va).all()
+        assert (mv[keys == b] == vb).all(), "collider got the hot key's row"
 
 
-def test_npj_sorted_span_clamps_to_table_end():
-    """A long mid-table cluster (max_disp > margin, no build overflow)
-    probed near the last bucket: the required span clamps to the table
-    end, so a whole-table window is NOT flagged as overflow (regression:
-    hi + max_disp + 1 overshot `size` and npj_join raised on a join the
-    window fully covered)."""
-    # margin 4096, size 12288 slots = 96 window chunks -- inside the
-    # dense kernel's r4-recalibrated ROWCHUNK_BUDGET ceiling (a 1<<14
-    # table needs a 160-chunk whole-table window, past the measured
-    # scoped-vmem boundary; the clamp semantics under test are
-    # size-independent)
-    plan = NpjPlan(buckets=1 << 13)
-    rng = np.random.default_rng(9)
+def _clustered_build(plan, rng, n_cluster=4500):
+    """Distinct keys whose home buckets crowd into 200 buckets: parking
+    pushes them thousands of slots past home (large max_disp)."""
     pool = np.unique(rng.integers(1, 2**32, 400_000, dtype=np.uint32))
     h0 = np_range_hash(pool, plan.factor, plan.buckets)
-    mid = pool[(h0 >= 2000) & (h0 < 2200)][:4500]  # one dense cluster
-    tail = pool[h0 == plan.buckets - 1][:2]        # keys at the last bucket
-    assert len(mid) == 4500 and len(tail) >= 1
-    ik = np.concatenate([mid, tail]).astype(np.uint32)
-    iv = (np.arange(len(ik), dtype=np.uint32) + 1)
-    tk, tv, ovf, max_disp = npj_build(jnp.asarray(ik), jnp.asarray(iv),
-                                      plan)
-    assert int(ovf) == 0
-    assert int(max_disp) > plan.margin  # the scenario's premise
-    ok = np.concatenate([tail, mid[:100]]).astype(np.uint32)
-    mv, mc, _ = npj_join(ik, iv, ok, ok, plan)
-    assert np.asarray(mc).min() == 1  # every probe found its row
+    mid = pool[(h0 >= 2000) & (h0 < 2200)][:n_cluster]
+    rest = pool[(h0 < 1500)][:1000]
+    return np.concatenate([mid, rest]).astype(np.uint32)
 
 
-def test_npj_sorted_tile_shrink_replan():
-    """Probe counts a small fraction of the table: tile spans exceed the
-    widest compilable window at tile 2048 (the r4 scoped-vmem ceiling),
-    and the driver must shrink the TILE (spans scale with tile, the cap
-    scales inversely) instead of raising."""
-    plan = NpjPlan(buckets=1 << 17)  # table 135168 slots >> window cap
-    rng = np.random.default_rng(13)
-    ik = np.unique(rng.integers(1, 2**32, 400_000, dtype=np.uint32))[:100_000]
-    iv = (np.arange(len(ik), dtype=np.uint32) + 1)
-    ok = ik[rng.integers(0, len(ik), 2048)].astype(np.uint32)
-    # premise: the auto window at tile 2048 cannot cover a tile's span
-    assert plan.auto_window(len(ok)) >= plan.max_window or \
-        plan.table_size > plan.max_window
-    mv, mc, plan_out = npj_join(ik, iv, ok, ok, plan)
-    assert plan_out.tile < 2048  # the shrink happened
-    assert np.asarray(mc).min() == 1  # every probe found its row
-    assert np.array_equal(np.asarray(mv), iv[np.searchsorted(ik, ok)])
+@pytest.mark.parametrize("order", ["input", "sorted"])
+@pytest.mark.parametrize("load", [0.5, 0.9])
+@pytest.mark.parametrize("build", ["uniform", "clustered"])
+def test_npj_probe_matches_oracle(order, load, build):
+    """The sorted probe, in both output orders, at the reference's load
+    factor and the default one, on a uniform build and on a clustered
+    build whose parking displacement is large -- against the oracle and
+    the chain walk."""
+    import dataclasses
+
+    rng = np.random.default_rng(int(load * 10) + len(build))
+    if build == "uniform":
+        ik = np.unique(rng.integers(1, 2**32, 6000, dtype=np.uint32))[:4096]
+        plan = plan_npj(len(ik), load=load)
+    else:
+        plan = NpjPlan(buckets=1 << 13)
+        ik = _clustered_build(plan, rng)
+        plan = plan_npj(len(ik), load=load)
+        plan = dataclasses.replace(plan, buckets=1 << 13)
+        _, _, ovf, max_disp = npj_build(jnp.asarray(ik),
+                                        jnp.asarray(ik), plan)
+        assert int(ovf) == 0 and int(max_disp) > 1000  # the premise
+    iv = rng.integers(0, 2**32, len(ik), dtype=np.uint32)
+    ok = np.concatenate([ik[rng.integers(0, len(ik), 6000)],
+                         rng.integers(1, 2**32, 2000, dtype=np.uint32)])
+    ok = ok.astype(np.uint32)
+    ov = rng.integers(0, 2**32, len(ok), dtype=np.uint32)
+    want = multiset_digest(*join_oracle(ik, iv, ok, ov))
+    if order == "input":
+        mv, mc, _ = npj_join(ik, iv, ok, ov, plan)
+        mv, mc = np.asarray(mv), np.asarray(mc)
+        m = mc == 1
+        assert multiset_digest(ok[m], ov[m], mv[m]) == want
+        cmv, cmc, _ = npj_join(ik, iv, ok, ov,
+                               dataclasses.replace(plan, probe_impl="chain"))
+        np.testing.assert_array_equal(mc, np.asarray(cmc))
+        np.testing.assert_array_equal(mv, np.asarray(cmv))
+    else:
+        k, v, mv, mc, _ = npj_join(ik, iv, ok, ov, plan, order="sorted")
+        k, v, mv, mc = (np.asarray(x) for x in (k, v, mv, mc))
+        m = mc == 1
+        assert multiset_digest(k[m], v[m], mv[m]) == want
 
 
 def test_npj_sorted_order_output_matches_input_order():
@@ -262,7 +203,7 @@ def test_npj_sorted_order_output_matches_input_order():
     ov = rng.integers(0, 2**32, len(ok), dtype=np.uint32)
     mv0, mc0, plan0 = npj_join(ik, iv, ok, ov)
     k_s, v_s, mv1, mc1, plan1 = npj_join(ik, iv, ok, ov, order="sorted")
-    assert plan1.window == plan0.window
+    assert plan1 == plan0
     k_s, v_s = np.asarray(k_s), np.asarray(v_s)
     mv1, mc1 = np.asarray(mv1), np.asarray(mc1)
     live = k_s != 0
@@ -280,5 +221,5 @@ def test_npj_sorted_order_output_matches_input_order():
         import dataclasses
 
         npj_join(ik, iv, ok, ov,
-                 dataclasses.replace(plan0, probe_impl="chain", window=0),
+                 dataclasses.replace(plan0, probe_impl="chain"),
                  order="sorted")

@@ -15,9 +15,9 @@ from hash_join_codes_knl_tpu.relgen.generate import generate
 
 def _check_against_oracle(inner, outer):
     res, plan = join(inner.keys, inner.vals, outer.keys, outer.vals)
-    if plan.probe_impl.startswith("merge"):
-        # merge mode: build_counts = [overflow_tiles, max_span, sel_ovf]
-        assert int(np.asarray(res.build_counts)[0]) == 0, "overflow"
+    if plan.probe_impl == "merge":
+        # merge mode: build_counts = [0, 0, unique_build violations]
+        assert int(np.asarray(res.build_counts)[2]) == 0, "violation"
     else:
         assert int(np.asarray(res.build_counts).max()) <= plan.slots, \
             "overflow"
@@ -87,7 +87,6 @@ def test_phj_merge_mode_matches_oracle():
         plan = JoinPlan(p_bits=6, slots=256, tile=256, pass_bits=(6,),
                         probe_impl="merge")
         res, _ = join(inner.keys, inner.vals, outer.keys, outer.vals, plan)
-        assert int(np.asarray(res.build_counts)[0]) == 0, "window overflow"
         k, v, t = materialize(res)
         want = multiset_digest(*join_oracle(inner.keys, inner.vals,
                                             outer.keys, outer.vals))
@@ -105,9 +104,8 @@ def test_phj_merge_mode_mn_duplicates_and_expand():
     ok = rng.integers(1, 400, 4096, dtype=np.uint32)
     ov = rng.integers(0, 2**32, 4096, dtype=np.uint32)
     plan = JoinPlan(p_bits=4, slots=256, tile=256, pass_bits=(4,),
-                    probe_impl="merge", window=4096)
+                    probe_impl="merge")
     res, _ = join(ik, iv, ok, ov, plan)
-    assert int(np.asarray(res.build_counts)[0]) == 0
     want_rows = join_oracle(ik, iv, ok, ov)
     assert int(res.join_tuples) == len(want_rows[0])
     assert int(np.asarray(res.match_cnts).max()) > 1  # real M:N
@@ -124,10 +122,9 @@ def test_phj_merge_mode_mn_duplicates_and_expand():
 
 
 def test_join_replans_window_on_duplicate_heavy_build():
-    """A build side with a single key repeated thousands of times makes
-    every probe of that key span far more build slots than the uniform
-    window; join() must detect the counted overflow and re-plan rather
-    than return short counts."""
+    """A build side with a single key repeated thousands of times: every
+    probe of that key must count the whole run (3001 rows), never a
+    short count."""
     rng = np.random.default_rng(53)
     base = np.unique(rng.integers(1, 2**32, 3000, dtype=np.uint32))[:1024]
     hot = base[0]
@@ -135,11 +132,10 @@ def test_join_replans_window_on_duplicate_heavy_build():
     iv = rng.integers(0, 2**32, len(ik), dtype=np.uint32)
     ok = base[rng.integers(0, 1024, 8192)].astype(np.uint32)
     ov = rng.integers(0, 2**32, 8192, dtype=np.uint32)
-    plan = JoinPlan(p_bits=4, slots=4096, tile=256, pass_bits=(4,),
-                    window=384)
+    plan = JoinPlan(p_bits=4, slots=4096, tile=256, pass_bits=(4,))
     res, final_plan = join(ik, iv, ok, ov, plan)
-    assert final_plan.window > 384  # re-planning happened
-    assert int(np.asarray(res.build_counts)[0]) == 0
+    assert final_plan == plan
+    assert int(np.asarray(res.build_counts)[2]) == 0
     # counts: each hot probe matches 3001 build rows
     mc = np.asarray(res.match_cnts)
     want_total = sum(3001 if k == hot else 1 for k in ok.tolist())
@@ -167,7 +163,7 @@ def test_materialize_expanded_mn_join():
 
 @pytest.mark.parametrize("ni,no", [(1, 1), (1, 5000), (3, 17), (130, 2)])
 def test_tiny_relations(ni, no):
-    """Degenerate sizes must survive padding/window geometry."""
+    """Degenerate sizes must survive the padding geometry."""
     rng = np.random.default_rng(ni * 1000 + no)
     ik = np.unique(rng.integers(1, 2**32, ni + 10, dtype=np.uint32))[:ni]
     iv = ik * np.uint32(7)
@@ -193,7 +189,7 @@ def test_no_matches_at_all():
 
 def test_padded_radix_mode_consumes_pass_bits():
     """partition_impl='radix' runs the padded join through the multi-pass
-    Pallas partitioner (pass_bits pass by pass, phj.cpp:1791-1863 analog)
+    radix partitioner (pass_bits pass by pass, phj.cpp:1791-1863 analog)
     and must match the golden oracle exactly."""
     import numpy as np
 
@@ -215,7 +211,7 @@ def test_padded_radix_mode_consumes_pass_bits():
     for pass_bits in ((6,), (3, 3)):
         plan = JoinPlan(p_bits=6, slots=1024, tile=2048,
                         pass_bits=pass_bits, partition_impl="radix",
-                        probe_impl="jnp")
+                        probe_impl="table")
         import jax.numpy as jnp
 
         res = phj_join(jnp.asarray(ik), jnp.asarray(iv), jnp.asarray(ok),
@@ -232,13 +228,12 @@ def test_padded_radix_4096way_reference_fanout():
     the bounded-fanout regime its pass loop (cpra2.cpp:1757-1827) always
     runs.  Verified at the multipass-partition level (every one of the
     4096 final regions must hold exactly its oracle multiset, pads
-    excluded, zero pass overflow); the full join at this fanout runs on
-    hardware in scripts/tpu_smoke.py, where the 4096-region probe is
-    compiled rather than interpreted."""
+    excluded, zero pass overflow); the full join at this fanout runs in
+    chip_smoke.py."""
     import jax.numpy as jnp
     import numpy as np
 
-    from hash_join_codes_knl_tpu.ops.radix_partition_pallas import (
+    from hash_join_codes_knl_tpu.ops.radix_partition import (
         multipass_partition,
     )
     from hash_join_codes_knl_tpu.utils.hashing import hashed_key
@@ -248,7 +243,7 @@ def test_padded_radix_4096way_reference_fanout():
     vals = rng.integers(0, 2**32, 8192, dtype=np.uint32)
     hk = np.asarray(hashed_key(jnp.asarray(keys), 0x9E3779B1))
     k, v, counts, ovf = multipass_partition(
-        jnp.asarray(hk), jnp.asarray(vals), (6, 6), interpret=True
+        jnp.asarray(hk), jnp.asarray(vals), (6, 6)
     )
     assert int(ovf) == 0
     counts = np.asarray(counts)
@@ -292,8 +287,7 @@ def test_reference_pass_plan_policy():
 
 def test_merge_probe_chunked_sort_matches_oracle():
     """probe_chunks > 1: the probe side is sorted as independent chunks
-    (batched 2-D sort) with per-chunk-widened windows; results must be
-    exactly the oracle's."""
+    (batched 2-D sort); results must be exactly the oracle's."""
     import numpy as np
     import jax.numpy as jnp
 
@@ -318,63 +312,10 @@ def test_merge_probe_chunked_sort_matches_oracle():
                                probe_chunks=4)
     res = phj_join(jnp.asarray(ik), jnp.asarray(iv), jnp.asarray(ok),
                    jnp.asarray(ov), plan)
-    assert int(np.asarray(res.build_counts)[0]) == 0  # windows covered
+    assert res.probe_keys.shape[0] == 4  # the chunk-row 2-D layout
     got = multiset_digest(*materialize(res))
     want = multiset_digest(*join_oracle(ik, iv, ok, ov))
     assert got == want
-
-
-def test_merge_window_replan_uses_measured_span():
-    """An undersized explicit window must re-plan straight to a clean
-    geometry from the measured max span (one retry), not blind-double."""
-    import dataclasses
-
-    import numpy as np
-
-    rng = np.random.default_rng(53)
-    ik = np.unique(rng.integers(1, 2**32, 5000, dtype=np.uint32))[:4096]
-    iv = rng.integers(0, 2**32, 4096, dtype=np.uint32)
-    ok = ik[rng.integers(0, 4096, 16384)].astype(np.uint32)
-    ov = rng.integers(0, 2**32, 16384, dtype=np.uint32)
-    plan = dataclasses.replace(plan_join(4096, 16384, tile=512),
-                               probe_chunks=8, window=128)
-    res, final = join(ik, iv, ok, ov, plan, window_retries=2)
-    assert int(np.asarray(res.build_counts)[0]) == 0
-    assert final.window > 128
-    assert int(res.join_tuples) == 16384
-
-
-def test_replan_from_span_prefers_tile_shrink():
-    """When the padded span busts the gather cap, the re-planner must
-    shrink the TILE and keep the chunk count (sort cost depends only on
-    C; spans scale with tile*C) -- falling back to C-shrink only when
-    the tile would drop below the per-step-overhead floor (512)."""
-    import dataclasses
-
-    from hash_join_codes_knl_tpu.engine.phj import (
-        GATHER_MAX_CHUNKS,
-        replan_from_span,
-    )
-
-    cap = GATHER_MAX_CHUNKS * 128
-    plan = dataclasses.replace(plan_join(16_000_000, 256_000_000),
-                               tile=3072, probe_chunks=64)
-    # zipf-like: measured span ~2.3x the cap at tile 3072
-    new = replan_from_span(plan, 36_000)
-    assert new.probe_chunks == 64  # sort geometry preserved
-    assert 512 <= new.tile < 3072 and new.tile % 128 == 0
-    assert new.window <= cap
-    # the scaled span estimate must fit the new window with margin
-    est = 36_000 * new.tile * 64 / (3072 * 64)
-    assert est * 1.25 + 384 <= new.window + 127
-    # pathological span: tile would fall below 512 -> C shrinks instead
-    new2 = replan_from_span(plan, 3_000_000)
-    assert new2.tile == 3072 and new2.probe_chunks < 64
-    # mild overflow (span under the cap): window widens, geometry kept
-    new3 = replan_from_span(dataclasses.replace(plan, probe_chunks=4,
-                                                tile=256), 3000)
-    assert new3.tile == 256 and new3.probe_chunks == 4
-    assert new3.window >= 3000 * 1.25
 
 
 def test_materialize_expanded_block_streaming():
@@ -402,10 +343,8 @@ def test_materialize_expanded_block_streaming():
 
 
 def test_join_raises_on_padded_overflow():
-    """The auto-replanning join() wrapper must RAISE on padded-table /
-    radix overflow (dropped tuples) rather than return a silently
-    truncated result -- window re-planning cannot fix those (regression:
-    only merge-mode overflow was inspected)."""
+    """The join() wrapper must RAISE on padded-table / radix overflow
+    (dropped tuples) rather than return a silently truncated result."""
     import pytest
 
     from hash_join_codes_knl_tpu.engine.config import JoinPlan
@@ -418,365 +357,60 @@ def test_join_raises_on_padded_overflow():
     ov = rng.integers(0, 2**32, 4096, dtype=np.uint32)
     # 4 partitions x 128 slots for 2048 build rows: guaranteed drops
     plan = JoinPlan(p_bits=2, slots=128, tile=128, pass_bits=(2,),
-                    probe_impl="jnp")
+                    probe_impl="table")
     with pytest.raises(RuntimeError, match="slots"):
         auto_join(ik, iv, ok, ov, plan)
-
-
-def test_merge_params_rejects_uncompilable_explicit_window():
-    """An explicit window past the scoped-vmem rows x chunks compile
-    budget of the kernel it RESOLVES to raises up front instead of
-    crashing the remote compiler minutes into a build.  The r5
-    regression case: a dense-resolving window must be checked against
-    DENSE_ROWCHUNK_BUDGET (2048, the r4 bracket), not the looser gather
-    budget -- tile 2048 + window 20480 (160 chunks x 16 rows = 2560
-    rowchunks) used to pass the old guard and crash the remote compile."""
-    import pytest
-
-    from hash_join_codes_knl_tpu.engine.config import JoinPlan
-    from hash_join_codes_knl_tpu.engine.phj import _merge_params
-
-    def params(**kw):
-        plan = JoinPlan(p_bits=4, slots=128, pass_bits=(4,), **kw)
-        return _merge_params(plan, 1 << 20, 1 << 24)
-
-    # far past every budget at tile 3072
-    with pytest.raises(ValueError, match="ceiling"):
-        params(tile=3072, window=40_000)
-    # THE r4 scoped-vmem drift case: 160 dense chunks at tile 2048
-    with pytest.raises(ValueError, match="DENSE"):
-        params(tile=2048, window=20_480)
-    # a gather-band window whose rows x chunks busts the GATHER budget
-    # at a big tile (64 rows x 118 chunks = 7552 >> 2904)
-    with pytest.raises(ValueError, match="gather"):
-        params(tile=8192, window=15_104)
-    # a gather-band window FORCED onto the dense sweep is checked
-    # against the dense budget (24 rows x 118 = 2832 > 2048)
-    with pytest.raises(ValueError, match="DENSE"):
-        params(tile=3072, window=15_104, probe_impl="merge_pallas")
-    # the same window on the auto path resolves to gather and is fine
-    params(tile=3072, window=15_104)
-    # a wide window that LEGALLY falls through to the dense sweep
-    # (140 chunks > GATHER_MAX_CHUNKS, 8 rows x 140 = 1120 <= 2048)
-    # warns about the pathological regime instead of passing silently
-    with pytest.warns(UserWarning, match="DENSE sweep"):
-        params(tile=1024, window=17_920)
-    # narrow windows pass silently
-    params(tile=3072, window=2048)
-    # the oracle path compiles nothing and is never refused
-    params(tile=2048, window=20_480, probe_impl="merge_jnp")
-
-
-def test_rowbase_select_overflow_falls_back_to_flat():
-    """A build-side duplicate run wider than the rowbase K-slice: the
-    kernel COUNTS the miss (build_counts[2]) instead of silently
-    under-counting, and join() re-plans to the flat select with exact
-    results and unchanged geometry."""
-    import dataclasses
-
-    import jax.numpy as jnp
-    from jax.experimental.pallas import tpu as pltpu
-
-    from hash_join_codes_knl_tpu.engine.phj import (
-        _rowbase_k,
-        join,
-        phj_join,
-    )
-
-    rng = np.random.default_rng(51)
-    # build: ~30 rows of distinct keys plus one 3000-duplicate run
-    # (~23 chunks of window span -- far beyond the K=16 slice at this
-    # geometry)
-    uniq = np.unique(rng.integers(1, 2**32, 2000, dtype=np.uint32))[:840]
-    ik = np.concatenate([uniq, np.full(3000, uniq[400], np.uint32)])
-    iv = rng.integers(0, 2**32, len(ik), dtype=np.uint32)
-    ok = uniq[rng.integers(0, 840, 16384)].astype(np.uint32)
-    ov = rng.integers(0, 2**32, 16384, dtype=np.uint32)
-    plan = JoinPlan(p_bits=4, slots=256, tile=2048, pass_bits=(4,),
-                    probe_impl="merge_gather", window=4096,
-                    gather_select="rowbase")
-    assert _rowbase_k(4096, 2048) == 16  # the slice the run overflows
-    with pltpu.force_tpu_interpret_mode():
-        first = phj_join(jnp.asarray(ik), jnp.asarray(iv),
-                         jnp.asarray(ok), jnp.asarray(ov), plan)
-        bc = np.asarray(first.build_counts)
-        assert int(bc[0]) == 0, "window must cover the run"
-        assert int(bc[2]) > 0, "the K-slice miss must be COUNTED"
-        res, plan_out = join(ik, iv, ok, ov, plan)
-    assert plan_out.gather_select == "flat"
-    assert plan_out.window == plan.window  # geometry unchanged
-    bc = np.asarray(res.build_counts)
-    assert int(bc[0]) == 0 and int(bc[2]) == 0
-    # exact against the flat select run directly
-    with pltpu.force_tpu_interpret_mode():
-        want = phj_join(
-            jnp.asarray(ik), jnp.asarray(iv), jnp.asarray(ok),
-            jnp.asarray(ov),
-            dataclasses.replace(plan, gather_select="flat"),
-        )
-    np.testing.assert_array_equal(np.asarray(res.match_cnts),
-                                  np.asarray(want.match_cnts))
-    np.testing.assert_array_equal(np.asarray(res.match_vals),
-                                  np.asarray(want.match_vals))
-    assert int(np.asarray(first.match_cnts).sum()) < int(
-        np.asarray(res.match_cnts).sum()
-    ), "the overflowing attempt under-counted (the bug being prevented)"
-
-
-def test_rowbase_select_clean_path_and_auto_policy(monkeypatch):
-    """rowbase on a uniform workload: no overflow, exact through join(),
-    and the auto policy picks rowbase only when the K-slice is
-    comfortably narrower than the window."""
-    import jax.numpy as jnp
-    from jax.experimental.pallas import tpu as pltpu
-
-    import hash_join_codes_knl_tpu.engine.phj as phj_mod
-    from hash_join_codes_knl_tpu.engine.config import JoinPlan as JP
-    from hash_join_codes_knl_tpu.engine.phj import (
-        _gather_select,
-        _rowbase_k,
-        join,
-    )
-
-    # policy (with the rowbase auto flag on): production geometry
-    # (tile 3072, W=118) -> rowbase; narrow tiles (zipf re-planned
-    # tile 1024) -> flat (3K > W)
-    monkeypatch.setattr(phj_mod, "_AUTO_ROWBASE", True)
-    assert _gather_select(JP(p_bits=4, slots=64, tile=3072),
-                          118 * 128) == "rowbase"
-    assert _gather_select(JP(p_bits=4, slots=64, tile=1024),
-                          118 * 128) == "flat"
-    assert _rowbase_k(118 * 128, 3072) == 16
-    monkeypatch.setattr(phj_mod, "_AUTO_ROWBASE", False)
-    assert _gather_select(JP(p_bits=4, slots=64, tile=3072),
-                          118 * 128) == "flat"
-
-    rng = np.random.default_rng(52)
-    ik = np.unique(rng.integers(1, 2**32, 4000, dtype=np.uint32))[:3840]
-    iv = rng.integers(0, 2**32, 3840, dtype=np.uint32)
-    ok = ik[rng.integers(0, 3840, 16384)].astype(np.uint32)
-    ov = rng.integers(0, 2**32, 16384, dtype=np.uint32)
-    plan = JP(p_bits=4, slots=256, tile=2048, pass_bits=(4,),
-              probe_impl="merge_gather", window=4096,
-              gather_select="rowbase")
-    with pltpu.force_tpu_interpret_mode():
-        res, plan_out = join(ik, iv, ok, ov, plan)
-    assert plan_out.gather_select == "rowbase"  # no fallback needed
-    bc = np.asarray(res.build_counts)
-    assert int(bc[0]) == 0 and int(bc[2]) == 0
-    k, v, t = materialize(res)
-    want = multiset_digest(*join_oracle(ik, iv, ok, ov))
-    assert multiset_digest(k, v, t) == want
-
-
-def test_merge_windows_fused_scan_identities():
-    """The fused single-scan windows stage must agree with the naive
-    per-search formulation on adversarial layouts: duplicate keys
-    straddling row boundaries, keys at the u32 domain top (where the
-    right(x) == left(x+1) identity wraps), and build-side pads."""
-    import jax.numpy as jnp
-
-    from hash_join_codes_knl_tpu.engine.phj import _merge_windows
-
-    rng = np.random.default_rng(91)
-    rows_total = 64
-    n_build = rows_total * 128
-    bhk = rng.integers(1, 2**32, n_build, dtype=np.uint32)
-    bhk[:400] = 0  # pads sort to the front
-    bhk[-700:] = 0xFFFFFFFF  # a run at the key-domain top
-    bhk[2000:2600] = bhk[2000]  # a duplicate run crossing rows
-    bhk = np.sort(bhk)
-    tile, window = 512, 1280
-    cap = 16 * tile
-    ohk = np.sort(np.concatenate([
-        bhk[rng.integers(0, n_build, cap - 900)],
-        np.full(500, 0xFFFFFFFF, np.uint32),   # probe the wrap edge
-        np.zeros(400, np.uint32),              # probe pads
-    ]).astype(np.uint32))
-    wrow, stats = _merge_windows(jnp.asarray(bhk), jnp.asarray(ohk),
-                                 tile, window, rows_total)
-    # naive reference formulation (numpy)
-    lo = ohk[::tile]
-    hi = ohk[tile - 1 :: tile]
-    coarse = bhk.reshape(rows_total, 128)[:, 0]
-    wrow0 = np.searchsorted(coarse, lo, side="left").astype(np.int32) - 1
-    hi_row0 = np.searchsorted(coarse, hi, side="right").astype(np.int32)
-    first_real = np.searchsorted(coarse, 1, side="left") - 1
-    wrow0 = np.maximum(wrow0, first_real)
-    wrow0 = np.clip(wrow0, 0, rows_total - window // 128)
-    span0 = (hi_row0 - wrow0) * 128
-    np.testing.assert_array_equal(np.asarray(wrow), wrow0)
-    assert int(stats[0]) == int((span0 > window).sum())
-    assert int(stats[1]) == int(span0.max())
 
 
 def test_unique_build_skips_secondary_sort_and_validates():
     """plan.unique_build (the reference's -D_UNIQUE analog,
     npj.cpp:954-956): exact on genuinely unique build keys, and a
     COUNTED violation + automatic downgrade on duplicate builds --
-    never a silently non-maximal match value."""
+    never a silently short count or non-maximal match value."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from hash_join_codes_knl_tpu.engine.phj import (
+        materialize_expanded,
+        phj_join,
+    )
+
     rng = np.random.default_rng(61)
     ik = np.unique(rng.integers(1, 2**32, 4000, dtype=np.uint32))[:2048]
     iv = rng.integers(0, 2**32, 2048, dtype=np.uint32)
     ok = ik[rng.integers(0, 2048, 8192)].astype(np.uint32)
     ov = rng.integers(0, 2**32, 8192, dtype=np.uint32)
     plan = JoinPlan(p_bits=4, slots=256, tile=256, pass_bits=(4,),
-                    probe_impl="merge", window=2048, unique_build=True)
+                    probe_impl="merge", unique_build=True)
     res, plan_out = join(ik, iv, ok, ov, plan)
     assert plan_out.unique_build  # no downgrade on clean input
-    bc = np.asarray(res.build_counts)
-    assert int(bc[0]) == 0 and int(bc[2]) == 0
+    assert int(np.asarray(res.build_counts)[2]) == 0
     k, v, t = materialize(res)
     want = multiset_digest(*join_oracle(ik, iv, ok, ov))
     assert multiset_digest(k, v, t) == want
 
     # duplicate build keys under a (wrong) unique declaration: the
-    # engine counts the violation and join() downgrades to the exact
-    # num_keys=2 path -- max-val semantics preserved.  The count is
-    # gated on the GATHER impl (the only engine whose max-val relies on
-    # value-secondary run order), so the violation path runs it in
-    # interpret mode.
-    import dataclasses
-
-    import jax.numpy as jnp
-    from jax.experimental.pallas import tpu as pltpu
-
-    from hash_join_codes_knl_tpu.engine.phj import phj_join
-
+    # engine counts the violation and join() downgrades to the
+    # run-compacting build -- exact counts and max-val semantics
     ik2 = np.concatenate([ik, ik[:512]])
     iv2 = rng.integers(0, 2**32, len(ik2), dtype=np.uint32)
-    gplan = dataclasses.replace(plan, probe_impl="merge_gather")
-    with pltpu.force_tpu_interpret_mode():
-        first = phj_join(jnp.asarray(ik2), jnp.asarray(iv2),
-                         jnp.asarray(ok), jnp.asarray(ov), gplan)
-        assert int(np.asarray(first.build_counts)[2]) == 512  # counted
-        res2, plan2 = join(ik2, iv2, ok, ov, gplan)
-    assert not plan2.unique_build  # downgraded
-    assert int(np.asarray(res2.build_counts)[2]) == 0
-    # the dense sweep is order-independently exact with num_keys=1:
-    # no violation counted, no spurious downgrade re-join
-    clean = phj_join(jnp.asarray(ik2), jnp.asarray(iv2), jnp.asarray(ok),
+    first = phj_join(jnp.asarray(ik2), jnp.asarray(iv2), jnp.asarray(ok),
                      jnp.asarray(ov), plan)
-    assert int(np.asarray(clean.build_counts)[2]) == 0
-    # exact M:N counts and MAX match values against the oracle
-    from hash_join_codes_knl_tpu.engine.phj import materialize_expanded
-
+    assert int(np.asarray(first.build_counts)[2]) == 512  # counted
+    res2, plan2 = join(ik2, iv2, ok, ov, plan)
+    assert not plan2.unique_build  # downgraded
+    assert plan2 == dataclasses.replace(plan, unique_build=False)
+    assert int(np.asarray(res2.build_counts)[2]) == 0
     k2, v2, t2 = materialize_expanded(res2, ik2, iv2)
     want2 = multiset_digest(*join_oracle(ik2, iv2, ok, ov))
     assert multiset_digest(k2, v2, t2) == want2
 
 
-def _mk_skewish(seed=131, ni=4096, no=65536):
-    rng = np.random.default_rng(seed)
-    ik = np.unique(rng.integers(1, 2**32, ni + 800, dtype=np.uint32))[:ni]
-    iv = rng.integers(0, 2**32, ni, dtype=np.uint32)
-    ok = ik[rng.integers(0, ni, no)].astype(np.uint32)
-    ov = rng.integers(0, 2**32, no, dtype=np.uint32)
-    return ik, iv, ok, ov
-
-
-def _two_class_plan(window=384, window_wide=1920, wide_cap=128):
-    import dataclasses
-
-    return dataclasses.replace(
-        plan_join(4096, 65536, tile=512), probe_chunks=8,
-        window=window, window_wide=window_wide, wide_cap=wide_cap,
-    )
-
-
-def test_two_class_windows_match_oracle(monkeypatch):
-    """r5 two-class skew geometry: narrow first pass + compact
-    prefetch-indexed wide pass must be exact -- verified on interpret-
-    mode kernels (narrow resolves DENSE at 3 chunks, wide is the
-    indexed gather) AND on the pure-jnp oracle path, against the golden
-    join.  The workload's tile spans straddle the narrow window so both
-    classes are genuinely populated."""
-    import functools
-
-    import jax.numpy as jnp
-
-    import hash_join_codes_knl_tpu.engine.phj as phj
-    import hash_join_codes_knl_tpu.ops.merge_probe_gather as mg
-    import hash_join_codes_knl_tpu.ops.merge_probe_pallas as mp
-
-    ik, iv, ok, ov = _mk_skewish()
-    plan = _two_class_plan()
-    want = multiset_digest(*join_oracle(ik, iv, ok, ov))
-
-    # jnp path (CPU default): one pass at the wide width
-    res_j = phj.phj_join(jnp.asarray(ik), jnp.asarray(iv),
-                         jnp.asarray(ok), jnp.asarray(ov), plan)
-    bc = np.asarray(res_j.build_counts)
-    assert bc[0] == 0 and bc[2] == 0, bc
-    from hash_join_codes_knl_tpu.engine.phj import materialize
-
-    assert multiset_digest(*materialize(res_j)) == want
-
-    # kernel path (interpret mode, forced on-TPU resolution)
-    monkeypatch.setattr(phj, "_on_tpu", lambda: True)
-    import hash_join_codes_knl_tpu.ops.chunk_layout as cl
-
-    monkeypatch.setattr(
-        cl, "flat_to_rows",
-        functools.partial(cl.flat_to_rows, interpret=True))
-    monkeypatch.setattr(
-        mp, "merge_probe_pallas",
-        functools.partial(mp.merge_probe_pallas, interpret=True))
-    monkeypatch.setattr(
-        mg, "merge_probe_gather",
-        functools.partial(mg.merge_probe_gather, interpret=True))
-    monkeypatch.setattr(
-        mg, "merge_probe_gather_indexed",
-        functools.partial(mg.merge_probe_gather_indexed, interpret=True))
-    res_k = phj.phj_join_merge(jnp.asarray(ik), jnp.asarray(iv),
-                               jnp.asarray(ok), jnp.asarray(ov), plan)
-    bc = np.asarray(res_k.build_counts)
-    assert bc[0] == 0 and bc[2] == 0, bc
-    assert multiset_digest(*materialize(res_k)) == want
-    # sanity: the wide class is genuinely populated at this geometry
-    from hash_join_codes_knl_tpu.engine.phj import (
-        _merge_params,
-        _merge_sort_probe,
-        _merge_sort_side,
-    )
-    from hash_join_codes_knl_tpu.utils.hashing import hashed_key
-
-    t, w, r, cap = _merge_params(plan, len(ik), len(ok))
-    bhk, _ = _merge_sort_side(hashed_key(jnp.asarray(ik), plan.factor),
-                              jnp.asarray(iv), r * 128, 2)
-    ohk, _ = _merge_sort_probe(hashed_key(jnp.asarray(ok), plan.factor),
-                               jnp.asarray(ov), cap, 8)
-    _, _, (tidx, _, wide_ovf) = phj._merge_windows(
-        bhk, ohk, t, w, r, window_wide=plan.window_wide,
-        wide_cap=plan.wide_cap)
-    assert int(wide_ovf) == 0
-    assert len(np.unique(np.asarray(tidx))) > 4, "wide class too small"
-
-
-def test_two_class_wide_cap_overflow_downgrades():
-    """More wide tiles than wide_cap is a COUNTED plan-opt violation:
-    join() must downgrade to single-class at window_wide and return
-    exact results (CPU jnp engine; the violation channel is the same
-    build_counts[2] the kernels use)."""
-    from hash_join_codes_knl_tpu.engine.phj import join, materialize
-
-    ik, iv, ok, ov = _mk_skewish(seed=137)
-    plan = _two_class_plan(wide_cap=2)  # far below the real wide count
-    res, final = join(ik, iv, ok, ov, plan)
-    assert final.window_wide == 0 and final.window == 1920
-    want = multiset_digest(*join_oracle(ik, iv, ok, ov))
-    assert multiset_digest(*materialize(res)) == want
-
-
-def test_two_class_plan_validation():
+def test_unknown_probe_impl_raises():
     import pytest
 
-    from hash_join_codes_knl_tpu.engine.phj import _merge_params
-
-    with pytest.raises(ValueError, match="explicit narrow"):
-        _merge_params(_two_class_plan(window=0), 4096, 65536)
-    with pytest.raises(ValueError, match="explicit narrow"):
-        _merge_params(_two_class_plan(window=1920, window_wide=1920),
-                      4096, 65536)
-    with pytest.raises(ValueError, match="gather"):
-        _merge_params(_two_class_plan(window_wide=40_000), 4096, 65536)
+    plan = JoinPlan(p_bits=2, slots=128, tile=128, probe_impl="pallas")
+    with pytest.raises(ValueError, match="probe_impl"):
+        join(np.ones(4, np.uint32), np.ones(4, np.uint32),
+             np.ones(4, np.uint32), np.ones(4, np.uint32), plan)

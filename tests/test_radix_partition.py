@@ -1,4 +1,4 @@
-"""Pallas histogram+scatter radix partition vs the numpy oracle."""
+"""The radix partition pass (ops/radix_partition.py) vs the numpy oracle."""
 
 import collections
 
@@ -6,9 +6,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from hash_join_codes_knl_tpu.ops.radix_partition_pallas import (
+from hash_join_codes_knl_tpu.ops.radix_partition import (
+    multipass_partition,
+    radix_partition,
     radix_partition_oracle,
-    radix_partition_pallas,
+    region_cap,
 )
 
 
@@ -16,10 +18,10 @@ def _multiset(keys, vals):
     return collections.Counter(zip(keys.tolist(), vals.tolist()))
 
 
-def _check(hk, vals, bits, skip_bits=0, tile=4096, cap=0):
-    out_k, out_v, counts, ovf = radix_partition_pallas(
+def _check(hk, vals, bits, skip_bits=0, cap=0):
+    out_k, out_v, counts, ovf = radix_partition(
         jnp.asarray(hk), jnp.asarray(vals), bits, skip_bits=skip_bits,
-        cap=cap, tile=tile, interpret=True,
+        cap=cap,
     )
     assert int(ovf) == 0, "unexpected overflow"
     out_k, out_v = np.asarray(out_k), np.asarray(out_v)
@@ -44,12 +46,12 @@ def test_uniform_keys_8way():
     _check(hk, vals, bits=3)
 
 
-def test_16way_with_nulls_and_multiple_tiles():
+def test_16way_with_nulls():
     rng = np.random.default_rng(1)
     hk = rng.integers(1, 2**32, 30000, dtype=np.uint32)
     hk[rng.integers(0, 30000, 3000)] = 0  # null keys must be dropped
     vals = rng.integers(0, 2**32, 30000, dtype=np.uint32)
-    _check(hk, vals, bits=4, tile=4096)
+    _check(hk, vals, bits=4)
 
 
 def test_skip_bits_second_pass():
@@ -66,12 +68,13 @@ def test_skewed_keys_detect_overflow():
     # must flag overflow rather than corrupt
     hk = np.full(8192, 0x9E3779B1, dtype=np.uint32)
     vals = np.arange(8192, dtype=np.uint32)
-    _, _, counts, ovf = radix_partition_pallas(
-        jnp.asarray(hk), jnp.asarray(vals), 3, cap=512, tile=4096,
-        interpret=True,
+    _, _, counts, ovf = radix_partition(
+        jnp.asarray(hk), jnp.asarray(vals), 3, cap=512,
     )
-    assert int(ovf) != 0
+    assert int(ovf) == 8192 - 512  # the dropped tuples, counted
     assert int(np.asarray(counts).sum()) == 8192  # counts stay exact
+    # the retry the drivers make: a cap from the exact counts is complete
+    _check(hk, vals, bits=3, cap=int(np.asarray(counts).max()))
 
 
 def test_two_pass_composition():
@@ -80,18 +83,14 @@ def test_two_pass_composition():
     rng = np.random.default_rng(3)
     hk = rng.integers(1, 2**32, 16384, dtype=np.uint32)
     vals = rng.integers(0, 2**32, 16384, dtype=np.uint32)
-    k1, v1, c1, ovf1 = radix_partition_pallas(
-        jnp.asarray(hk), jnp.asarray(vals), 3, tile=4096, interpret=True
-    )
+    k1, v1, c1, ovf1 = radix_partition(jnp.asarray(hk), jnp.asarray(vals), 3)
     assert int(ovf1) == 0
     cap1 = k1.shape[0] // 8
     want6 = radix_partition_oracle(hk, vals, 6)
     for p1 in range(8):
         rk = k1[p1 * cap1 : (p1 + 1) * cap1]
         rv = v1[p1 * cap1 : (p1 + 1) * cap1]
-        k2, v2, c2, ovf2 = radix_partition_pallas(
-            rk, rv, 3, skip_bits=3, tile=4096, interpret=True
-        )
+        k2, v2, c2, ovf2 = radix_partition(rk, rv, 3, skip_bits=3)
         assert int(ovf2) == 0
         k2, v2 = np.asarray(k2), np.asarray(v2)
         cap2 = k2.shape[0] // 8
@@ -104,15 +103,40 @@ def test_two_pass_composition():
 
 
 def test_empty_input_clean_overflow():
-    """An empty chunk must report overflow == 0 deterministically
-    (regression: the empty grid never ran the kernel, so the overflow
-    output returned uninitialized memory and cap-retry loops could spin
-    on phantom overflow)."""
-    out_k, out_v, counts, ovf = radix_partition_pallas(
+    """An empty chunk reports overflow == 0 and empty regions."""
+    out_k, out_v, counts, ovf = radix_partition(
         jnp.zeros(0, jnp.uint32), jnp.zeros(0, jnp.uint32), 3,
-        interpret=True,
     )
     assert int(ovf) == 0
     assert int(np.asarray(counts).sum()) == 0
     assert (np.asarray(out_k) == 0).all()
     assert len(out_k) % (8 * 128) == 0
+
+
+@pytest.mark.parametrize("pass_bits", [(6,), (3, 3), (2, 2, 2)])
+def test_multipass_matches_single_pass_oracle(pass_bits):
+    """Composed passes (each later pass batched over the previous
+    regions) give the oracle's 6-bit partitions in region order."""
+    rng = np.random.default_rng(sum(pass_bits) + len(pass_bits))
+    hk = rng.integers(1, 2**32, 20000, dtype=np.uint32)
+    hk[:500] = 0
+    vals = rng.integers(0, 2**32, 20000, dtype=np.uint32)
+    k, v, counts, ovf = multipass_partition(jnp.asarray(hk),
+                                            jnp.asarray(vals), pass_bits)
+    assert int(ovf) == 0
+    k, v, counts = np.asarray(k), np.asarray(v), np.asarray(counts)
+    cap = len(k) // 64
+    for p, (wk, wv) in enumerate(radix_partition_oracle(hk, vals, 6)):
+        rk, rv = k[p * cap : (p + 1) * cap], v[p * cap : (p + 1) * cap]
+        m = rk != 0
+        assert counts[p] == len(wk) == m.sum()
+        assert _multiset(rk[m], rv[m]) == _multiset(wk, wv)
+
+
+@pytest.mark.parametrize("n,F,cap,want", [
+    (0, 8, 0, 128), (1 << 20, 64, 0, 17408), (100, 4, 300, 384),
+    (1 << 16, 1, 0, 67584),
+])
+def test_region_cap_rule(n, F, cap, want):
+    assert region_cap(n, F, cap) == want
+    assert region_cap(n, F, cap) % 128 == 0

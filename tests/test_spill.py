@@ -7,9 +7,7 @@ from hash_join_codes_knl_tpu.engine.spill import (
     resume_partitions,
     spill_partitions,
 )
-from hash_join_codes_knl_tpu.ops.radix_partition_pallas import (
-    radix_partition_pallas,
-)
+from hash_join_codes_knl_tpu.ops.radix_partition import radix_partition
 
 import jax.numpy as jnp
 
@@ -18,8 +16,8 @@ def test_spill_resume_roundtrip(tmp_path):
     rng = np.random.default_rng(0)
     hk = rng.integers(1, 2**32, 20000, dtype=np.uint32)
     vals = rng.integers(0, 2**32, 20000, dtype=np.uint32)
-    out_k, out_v, counts, ovf = radix_partition_pallas(
-        jnp.asarray(hk), jnp.asarray(vals), 3, tile=4096, interpret=True
+    out_k, out_v, counts, ovf = radix_partition(
+        jnp.asarray(hk), jnp.asarray(vals), 3
     )
     assert int(ovf) == 0
     spill_partitions(str(tmp_path), "pass1", out_k, out_v, counts,

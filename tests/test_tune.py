@@ -16,12 +16,12 @@ def test_tuner_falls_back_off_device():
 def test_tuner_uses_cache_file(tmp_path):
     """A cached verdict for this (n, tile, jax version, device kind) key
     must be honored without any timing -- even on CPU the cache hit path
-    is the same code the TPU driver takes."""
+    is the same code the device driver takes."""
     import jax
 
     dev = jax.devices()[0]
     # off-device callers return the default before the cache is read;
-    # exercise the cache logic by writing the key the TPU path would use
+    # exercise the cache logic by writing the key the device path would use
     key = f"256000000|3072|{jax.__version__}|{dev.device_kind}"
     path = tmp_path / "tune.json"
     path.write_text(json.dumps({key: {"C": 56, "times": {"56": 0.9}}}))
@@ -38,9 +38,10 @@ def test_tuner_disabled_by_env(monkeypatch):
 def test_plan_join_reads_tuner_default():
     from hash_join_codes_knl_tpu.engine.config import plan_join
 
+    # the planner no longer consults the tuner: one global probe sort
     plan = plan_join(16_000_000, 256_000_000)
-    assert plan.probe_chunks == 64  # CPU backend: static default
-    assert plan.tile == 3072
+    assert plan.probe_chunks == 0
+    assert plan.tile == 2048
 
 
 def test_tuner_degenerate_candidate_sets():
@@ -60,7 +61,7 @@ def test_tuner_cache_key_includes_candidate_set(tmp_path, monkeypatch):
     import jax
 
     class _FakeDev:
-        platform = "faketpu"
+        platform = "fakegpu"
         device_kind = "FakeChip"
 
     monkeypatch.setattr(jax, "devices", lambda: [_FakeDev()])
